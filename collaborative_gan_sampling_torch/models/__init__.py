@@ -1,0 +1,110 @@
+"""Model factory: the PyTorch counterpart of the JAX package's ``GANBundle``.
+
+In the JAX package the bundle is stateless and variables travel beside it; in
+the port the (G, D) state lives in ``nn.Module``s that ``init`` creates, and
+the bundle's methods take those modules where the JAX methods take variables:
+
+* ``bundle.generate(g, z, train=False)`` -> samples (B, H, W, C),
+* ``bundle.discriminate(d, x, train=False)`` -> logits (B,); with
+  ``train=True`` BatchNorm uses batch statistics and updates its running
+  averages in place,
+* ``bundle.sample_z(generator, n)``, ``bundle.init(generator)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from collaborative_gan_sampling_torch.config import ModelConfig
+from collaborative_gan_sampling_torch.models.dcgan import (
+    DCGANDiscriminator,
+    DCGANGenerator,
+    num_stages,
+    reset_parameters,
+)
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The port runs on the card unless the caller asks for the CPU; with no
+    card it raises instead of carrying on quietly on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU")
+    return device
+
+
+@dataclass(frozen=True)
+class GANBundle:
+    """A (G, D) architecture plus the static facts the pipelines need."""
+
+    cfg: ModelConfig
+    device: torch.device
+    z_dim: int
+    data_shape: tuple[int, ...]  # per-sample shape (H, W, C)
+    num_classes: int = 0
+
+    @property
+    def conditional(self) -> bool:
+        return self.num_classes > 0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def sample_z(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """z ~ N(0, I), (n, z_dim) float32."""
+        return torch.randn((n, self.z_dim), generator=generator,
+                           device=self.device)
+
+    def init(self, generator: torch.Generator
+             ) -> tuple[DCGANGenerator, DCGANDiscriminator]:
+        """Fresh (G, D) modules on the bundle's device, DCGAN-initialised
+        from ``generator`` (G first, then D)."""
+        c = self.cfg
+        g = DCGANGenerator(c.image_size, c.channels, c.g_base_filters,
+                           c.z_dim, self.dtype).to(self.device)
+        d = DCGANDiscriminator(c.image_size, c.channels, c.d_base_filters,
+                               self.dtype).to(self.device)
+        reset_parameters(g, generator)
+        reset_parameters(d, generator)
+        return g.eval(), d.eval()
+
+    def generate(self, g: DCGANGenerator, z: torch.Tensor,
+                 labels: torch.Tensor | None = None,
+                 train: bool = False) -> torch.Tensor:
+        _unconditional(labels)
+        return g.train(train)(z)
+
+    def discriminate(self, d: DCGANDiscriminator, x: torch.Tensor,
+                     labels: torch.Tensor | None = None,
+                     train: bool = False) -> torch.Tensor:
+        _unconditional(labels)
+        return d.train(train)(x)
+
+
+def _unconditional(labels) -> None:
+    if labels is not None:
+        raise NotImplementedError(
+            "class-conditional models are not ported yet")
+
+
+def make_bundle(cfg: ModelConfig, device: str | torch.device | None = None
+                ) -> GANBundle:
+    device = resolve_device(device)
+    if cfg.kind != "dcgan":
+        raise NotImplementedError(
+            f"model.kind={cfg.kind!r} is not ported yet (only 'dcgan')")
+    if cfg.num_classes > 0:
+        raise NotImplementedError(
+            "class-conditional models are not ported yet")
+    if num_stages(cfg.image_size) == 0:
+        raise ValueError(
+            f"model.image_size={cfg.image_size} is not supported by the "
+            "DCGAN stack: it must halve at least once to a spatial size >= 4")
+    shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    return GANBundle(cfg=cfg, device=device, z_dim=cfg.z_dim,
+                     data_shape=shape, num_classes=0)

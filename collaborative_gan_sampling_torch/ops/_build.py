@@ -1,0 +1,105 @@
+"""Builds the hand-written CUDA kernels of ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc`` for
+Hopper (``sm_90a``) into its own shared library, which is loaded with
+``ctypes``. Libraries go to ``build/kernels/`` beside the package (listed in
+``.gitignore``) under a name that carries a hash of the source and the flags,
+so an edited source is rebuilt and an unchanged one is reused. ``build()``
+starts one ``nvcc`` per source, all at once.
+
+Every C entry returns the ``cudaError_t`` of its launch; the wrappers raise
+when it is not 0 (``check``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("drs_accept", "conv_refine28")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc on the machine with the card")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
+    """Compile every library of ``names`` that is missing, one ``nvcc`` per
+    source, all started together. Returns each kernel's ptxas report
+    (registers, shared memory, spills); '' where the library was cached."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    if name not in _LIBS:
+        path = lib_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        lib.cgs_error_string.restype = ctypes.c_char_p
+        lib.cgs_error_string.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.cgs_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,184 @@
+"""Sampling strategies: standard, refinement, DRS reject and collab.
+
+Counterpart of ``collaborative_gan_sampling_tpu/sampling/collab.py``. The
+JAX package compiles each strategy into one scanned program; here each is a
+Python loop over batch rounds that stays on the device (the burn-in M, the
+accept masks and the shaped D never leave it). ``mhgan`` is not ported yet.
+
+collab, per round i:
+  1. x, logits = K-step refined G(z) under the current (shaped) D;
+  2. with shaping on, M <- 0.7 M + 0.3 max(logits), and the accept test uses
+     max(M, max(logits)); with shaping off the burn-in M stays;
+  3. DRS accept mask;
+  4. if i % shape_every == 0: ``shaping_steps`` D updates on (real, x).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from collaborative_gan_sampling_torch.config import RefineConfig
+from collaborative_gan_sampling_torch.models import GANBundle
+from collaborative_gan_sampling_torch.sampling.refine import (
+    make_draw_refine_fn,
+)
+from collaborative_gan_sampling_torch.sampling.rejection import (
+    drs_accept_mask,
+    estimate_logit_max,
+)
+from collaborative_gan_sampling_torch.training.shaping import ShapingStep
+
+METHODS = ("standard", "reject", "refinement", "collab")
+
+
+class SampleResult(NamedTuple):
+    """samples (N, H, W, C), accepted (N,) bool, logits (N,), labels (None
+    for unconditional models), aux (strategy-specific)."""
+
+    samples: torch.Tensor
+    accepted: torch.Tensor
+    logits: torch.Tensor
+    labels: torch.Tensor | None
+    aux: dict[str, Any]
+
+    def accepted_samples(self) -> torch.Tensor:
+        return self.samples[self.accepted]
+
+    @property
+    def accept_rate(self) -> float:
+        return float(self.accepted.float().mean())
+
+
+def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
+           generator: torch.Generator | None, method: str | None = None,
+           data_fn: Callable | None = None) -> SampleResult:
+    """Run a sampling strategy end to end on the bundle's device.
+    ``data_fn(generator, n) -> (x, labels)`` supplies real batches (needed
+    by collab shaping). The given ``d`` is left as it is; collab returns the
+    shaped copy in ``aux['shaped_d']``."""
+    method = method or cfg.method
+    if method == "mhgan":
+        raise NotImplementedError("mhgan sampling is not ported yet")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; have {METHODS}")
+    if method == "collab":
+        return _sample_collab(bundle, g, d, cfg, generator, data_fn)
+    fn = {"standard": _sample_standard, "reject": _sample_reject,
+          "refinement": _sample_refinement}[method]
+    return fn(bundle, g, d, cfg, generator)
+
+
+def _draw(bundle, g, generator, n):
+    z = bundle.sample_z(generator, n)
+    with torch.no_grad():
+        return bundle.generate(g, z, train=False), None
+
+
+def _result(xs, logits, accepted=None, aux=None) -> SampleResult:
+    samples, logits = torch.cat(xs), torch.cat(logits)
+    if accepted is None:
+        accepted = torch.ones(samples.shape[0], dtype=torch.bool,
+                              device=samples.device)
+    else:
+        accepted = torch.cat(accepted)
+    return SampleResult(samples, accepted, logits, None, aux or {})
+
+
+def _sample_standard(bundle, g, d, cfg, generator):
+    xs, logits = [], []
+    for _ in range(cfg.num_batches):
+        x, labels = _draw(bundle, g, generator, cfg.batch_size)
+        with torch.no_grad():
+            logits.append(bundle.discriminate(d, x, labels, train=False))
+        xs.append(x)
+    return _result(xs, logits)
+
+
+def _sample_refinement(bundle, g, d, cfg, generator):
+    draw_refine = make_draw_refine_fn(bundle, cfg)
+    xs, logits = [], []
+    for _ in range(cfg.num_batches):
+        x, _, lg = draw_refine(g, d, generator, cfg.batch_size)
+        xs.append(x)
+        logits.append(lg)
+    return _result(xs, logits)
+
+
+def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
+    draw_refine = make_draw_refine_fn(bundle, cfg) if refine_first else None
+
+    def burn_sample(gen, n):
+        if draw_refine is not None:
+            x, labels, _ = draw_refine(g, d, gen, n)
+            return x, labels
+        return _draw(bundle, g, gen, n)
+
+    m = estimate_logit_max(bundle, d, burn_sample, generator, cfg.burn_in,
+                           cfg.batch_size)
+    xs, logits, accepted = [], [], []
+    for _ in range(cfg.num_batches):
+        if draw_refine is not None:
+            x, labels, lg = draw_refine(g, d, generator, cfg.batch_size)
+        else:
+            x, labels = _draw(bundle, g, generator, cfg.batch_size)
+            with torch.no_grad():
+                lg = bundle.discriminate(d, x, labels, train=False)
+        accepted.append(drs_accept_mask(generator, lg, m, cfg.gamma,
+                                        cfg.eps_drs, cfg.gamma_percentile,
+                                        use_pallas=cfg.use_pallas))
+        xs.append(x)
+        logits.append(lg)
+    return _result(xs, logits, accepted, {"logit_max": m})
+
+
+def _sample_collab(bundle, g, d, cfg, generator, data_fn):
+    if data_fn is None:
+        raise ValueError("collab sampling needs data_fn for D shaping")
+    draw_refine = make_draw_refine_fn(bundle, cfg)
+    shape_step = ShapingStep(bundle, cfg.shaping_lr, decay=cfg.shaping_decay,
+                             target=cfg.shaping_target,
+                             anchor=cfg.shaping_anchor,
+                             r1_gamma=cfg.shaping_r1_gamma)
+    anchor_params = ([p.detach().clone() for p in d.parameters()]
+                     if cfg.shaping_anchor > 0 else None)
+    state = shape_step.init(d)
+    shaping_on = cfg.shape_every > 0
+
+    def burn_sample(gen, n):
+        x, labels, _ = draw_refine(g, state.d, gen, n)
+        return x, labels
+
+    m = estimate_logit_max(bundle, state.d, burn_sample, generator,
+                           cfg.burn_in, cfg.batch_size)
+    xs, logits, accepted, shape_losses = [], [], [], []
+    zero = torch.zeros((), device=bundle.device)
+    for i in range(cfg.num_batches):
+        x, labels, lg = draw_refine(g, state.d, generator, cfg.batch_size)
+        if shaping_on:
+            # D's logit scale drifts while it is shaped: recalibrate M.
+            m = 0.7 * m + 0.3 * lg.max()
+            m_eff = torch.maximum(m, lg.max())
+        else:
+            m_eff = m
+        accepted.append(drs_accept_mask(generator, lg, m_eff, cfg.gamma,
+                                        cfg.eps_drs, cfg.gamma_percentile,
+                                        use_pallas=cfg.use_pallas))
+        loss = zero
+        if shaping_on and i % cfg.shape_every == 0:
+            for _ in range(cfg.shaping_steps):
+                x_real, labels_r = data_fn(generator, cfg.batch_size)
+                state, loss = shape_step(state, x_real, x, labels_r, labels,
+                                         anchor_params)
+        shape_losses.append(loss)
+        xs.append(x)
+        logits.append(lg)
+    return _result(xs, logits, accepted, {
+        "logit_max": m, "shape_losses": torch.stack(shape_losses),
+        "shaped_d": state.d.eval(), "shaping_steps_done": state.step})
+
+
+def sample_refine_reject(bundle, g, d, cfg, generator) -> SampleResult:
+    """Refinement followed by DRS rejection, no shaping."""
+    return _sample_reject(bundle, g, d, cfg, generator, refine_first=True)

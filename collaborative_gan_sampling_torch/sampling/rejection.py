@@ -1,0 +1,86 @@
+"""Discriminator rejection sampling (DRS, arXiv:1810.06758) in PyTorch.
+
+Counterpart of ``collaborative_gan_sampling_tpu/sampling/rejection.py``. With
+F the D logit and M the burn-in estimate of max F, the acceptance probability
+is sigmoid(F_hat) with F_hat = F - M - log(1 - exp(F - M - eps)) - gamma.
+The accepted set is a boolean mask of the batch's shape.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from collaborative_gan_sampling_torch.ops.accept import (
+    draw_seed,
+    drs_accept_mask_from_uniform,
+    drs_accept_mask_philox,
+)
+
+
+def drs_logit_shift(logits: torch.Tensor, logit_max, gamma: float = 0.0,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """F_hat in the expm1 form; a logit above M is clamped to M - eps."""
+    f = torch.clamp_max(logits - logit_max, -eps)
+    return f - torch.log(-torch.expm1(f - eps)) - gamma
+
+
+def gamma_total(shifted: torch.Tensor, gamma: float,
+                gamma_percentile: float) -> torch.Tensor:
+    """Static gamma plus, with ``gamma_percentile`` > 0, the batch
+    percentile of F_hat (linear interpolation, as ``jnp.percentile``)."""
+    g = torch.tensor(gamma, dtype=torch.float32, device=shifted.device)
+    if gamma_percentile > 0:
+        g = g + torch.quantile(shifted, gamma_percentile / 100.0)
+    return g
+
+
+def drs_acceptance_prob(logits: torch.Tensor, logit_max, gamma: float = 0.0,
+                        eps: float = 1e-6,
+                        gamma_percentile: float = 0.0) -> torch.Tensor:
+    shifted = drs_logit_shift(logits, logit_max, 0.0, eps)
+    return torch.sigmoid(shifted - gamma_total(shifted, gamma,
+                                               gamma_percentile))
+
+
+def drs_accept_mask(generator: torch.Generator | None, logits: torch.Tensor,
+                    logit_max, gamma: float = 0.0, eps: float = 1e-6,
+                    gamma_percentile: float = 0.0, use_pallas: bool = False,
+                    uniforms: torch.Tensor | None = None) -> torch.Tensor:
+    """Boolean accept mask, same shape as logits.
+
+    With ``use_pallas`` and 1-D logits the shift, sigmoid, draw and compare
+    run as the DRS accept kernel (``ops/accept.py``), u drawn inside it from
+    a key taken from ``generator``; gamma_total is computed here, outside the
+    kernel, with the expm1 shift. Otherwise u is drawn with
+    ``torch.rand``. ``uniforms`` replaces the draw in either case."""
+    if use_pallas and logits.ndim == 1:
+        g = gamma
+        if gamma_percentile > 0:
+            g = gamma_total(drs_logit_shift(logits, logit_max, 0.0, eps),
+                            gamma, gamma_percentile)
+        if uniforms is not None:
+            return drs_accept_mask_from_uniform(uniforms, logits, logit_max,
+                                                g, eps)
+        return drs_accept_mask_philox(draw_seed(generator, logits.device),
+                                      logits, logit_max, g, eps)
+    p = drs_acceptance_prob(logits, logit_max, gamma, eps, gamma_percentile)
+    if uniforms is None:
+        uniforms = torch.rand(logits.shape, generator=generator,
+                              device=logits.device)
+    return uniforms < p
+
+
+def estimate_logit_max(bundle, d, sample_fn: Callable,
+                       generator: torch.Generator | None, burn_in: int,
+                       batch_size: int) -> torch.Tensor:
+    """Burn-in estimate of M = max_x F(x) over ``burn_in // batch_size``
+    (at least one) batches of ``sample_fn(generator, n) -> (x, labels)``."""
+    m = torch.tensor(float("-inf"), device=bundle.device)
+    for _ in range(max(1, burn_in // batch_size)):
+        x, labels = sample_fn(generator, batch_size)
+        with torch.no_grad():
+            logits = bundle.discriminate(d, x, labels, train=False)
+        m = torch.maximum(m, logits.max())
+    return m

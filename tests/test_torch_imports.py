@@ -1,0 +1,75 @@
+"""The port stands alone: no file of ``collaborative_gan_sampling_torch`` and
+not ``chip_smoke.py`` imports JAX, Flax, Optax or the JAX package; its entry
+points refuse to run without a card unless the caller asks for the CPU; and
+``chip_smoke.py`` fails, printing no result, where there is no card or where
+it stands without the rest of the repo."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "collaborative_gan_sampling_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu")
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_make_bundle_needs_a_card_unless_told(monkeypatch):
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.models import make_bundle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_bundle(get_preset("mnist").model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_bundle(get_preset("mnist").model, device="cuda")
+    assert make_bundle(get_preset("mnist").model,
+                       device="cpu").device.type == "cpu"
+
+
+def _run_smoke(cwd: Path, script: Path):
+    return subprocess.run([sys.executable, str(script)], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run")
+    proc = _run_smoke(REPO, REPO / "chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    proc = _run_smoke(tmp_path, alone)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
