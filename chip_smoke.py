@@ -10,15 +10,32 @@ Phases, each of which raises (and exits non-zero) on failure:
 2. build   - compiles every kernel of ``collaborative_gan_sampling_torch/
              csrc`` with nvcc (one process per source, all at once);
 3. kernels - holds each kernel against its plain PyTorch version on the card
-             at the main path's shapes (and a ragged batch), TF32 off;
+             at the main paths' shapes (and a ragged batch), TF32 off;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
              width (DCGAN 28x28x1, 64/64 filters, z = 100, K = 10, batch 256,
              bf16 compute) from a random init, with real batches from a
              seeded pool of images; launch counters are set to 0 just before
              and read just after; then the kernel and plain refine paths are
              held against each other on a small input;
-5. timing  - each kernel and its plain version timed with CUDA events at the
-             main path's shapes, beside the least time the card could take.
+5. toy2d   - ``sample(..., method="collab")`` on the ``toy2d`` preset at full
+             width (MLP D and G of 3 x 128 relu layers over 2-D points,
+             z = 4, K = 10, rate 0.1, 40 rounds of 256, burn-in 2048, f32)
+             from a seeded random init, with real batches from the
+             ``ring8_imbalanced`` mixture; launch counters set to 0 just
+             before and read just after; %HQ, KL and modes covered printed;
+             then the kernel and autograd refine paths held against each
+             other on a small input;
+6. serving - ``ServingSampler(..., "collab").generate``: toy2d under the
+             shaped D of phase 5 (n = 100,000 float32 samples), mnist under
+             the shaped D of phase 4 (n = 4,096 uint8 samples), each with
+             its launch counters;
+7. timing  - each kernel and its plain version timed with CUDA events at the
+             main paths' shapes (the MLP kernel also at B = 65,536, with its
+             device time per launch from torch.profiler), beside the least
+             time the card could take.
+
+Phases 5 and 6 also profile one more toy2d run each with torch.profiler
+(device busy share, kernels by device time, ops by host time).
 
 The line before the last is a JSON object with one row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network.
@@ -44,6 +61,14 @@ BATCH, STEPS, RATE = 256, 10, 0.02  # the mnist preset's refine shape
 RAGGED = 37
 REFINE_ATOL = 1e-5  # f32 sums in another order over K = 10 steps
 ACCEPT_BAND = 1e-6  # masks may differ only where |u - p| < 1e-6
+MLP_STEPS, MLP_RATE = 10, 0.1  # the toy2d preset's refine shape
+MLP_BATCHES = (256, 37, 65536)  # main path, ragged, large
+# relu' may differ between the MLP kernel and its plain version only where a
+# pre-activation lies within float32 rounding of 0; samples whose plain run
+# came within RELU_BAND of 0 at any unit and step are held to REFINE_ATOL
+# only as a group: at most BAND_SHARE of the batch may exceed it.
+RELU_BAND = 1e-5
+BAND_SHARE = 1e-3
 
 
 def phase(msg: str) -> None:
@@ -64,6 +89,53 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled(torch, fn):
+    """Run fn once under torch.profiler (CPU and CUDA activities). Returns
+    the wall seconds under the profiler, {kernel: [device ms, launches]}
+    from the device's own records (user annotations left out), and the
+    profiler's averages."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            row = kernels.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return wall, kernels, prof.key_averages()
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without its return type, namespace or arguments."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ").split("(")[0]
+    return name if len(name) <= 48 else name[:45] + "..."
+
+
+def print_profile(label, wall, kernels, averages, top=5):
+    busy = sum(ms for ms, _ in kernels.values())
+    launches = sum(a.count for a in averages
+                   if a.key.startswith("cudaLaunchKernel"))
+    print(f"   profile ({label}): {wall * 1e3:.1f} ms wall under the "
+          f"profiler, device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}"
+          f"% of wall), {launches} kernel launches from the host")
+    by_dev = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    print("     by device time: " + "; ".join(
+        f"{short_name(k)} {ms:.2f} ms x{n}" for k, (ms, n) in by_dev))
+    by_host = sorted(averages, key=lambda a: -a.self_cpu_time_total)[:top]
+    print("     by host time: " + "; ".join(
+        f"{a.key[:40]} {a.self_cpu_time_total / 1e3:.2f} ms x{a.count}"
+        for a in by_host))
 
 
 def device_phase():
@@ -180,6 +252,81 @@ def refine_cases(torch, dev):
     return worst
 
 
+def mlp_d(torch, dev, seed=4):
+    """The toy2d D at full width (3 x 128 relu layers over 2-D points) with
+    random weights and non-zero biases."""
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.models import make_bundle
+
+    bundle = make_bundle(get_preset("toy2d").model, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _, d = bundle.init(gen)
+    with torch.no_grad():
+        for layer in d.children():
+            layer.bias.normal_(0.0, 0.1, generator=gen)
+    return d, gen
+
+
+def relu_margin(torch, params, x0, steps, rate):
+    """Per sample, the least |pre-activation| of any hidden unit over the
+    plain version's K + 1 forwards."""
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        refine_mlp_plain,
+    )
+
+    x = x0
+    margin = torch.full((x0.shape[0],), float("inf"), device=x0.device)
+    for k in range(steps + 1):
+        h = x
+        for w, b in params[:-1]:
+            z = h @ w + b
+            margin = torch.minimum(margin, z.abs().amin(1))
+            h = torch.relu(z)
+        if k < steps:
+            x, _ = refine_mlp_plain(params, x, 1, rate)
+    return margin
+
+
+def mlp_refine_cases(torch, dev):
+    """Max |kernel - plain| over x and logits outside the relu band; inside
+    it, at most BAND_SHARE of the batch beyond the tolerance."""
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+        mlp_params_from_d,
+        refine_mlp_plain,
+    )
+
+    d, gen = mlp_d(torch, dev)
+    params = mlp_params_from_d(d)
+    worst = 0.0
+    for n in MLP_BATCHES:
+        x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
+        xp, lp = refine_mlp_plain(params, x0, MLP_STEPS, MLP_RATE)
+        far = relu_margin(torch, params, x0, MLP_STEPS, MLP_RATE) >= RELU_BAND
+        moved = float((xp - x0).abs().max())
+        xk, lk = fused_refine_mlp(params, x0, MLP_STEPS, MLP_RATE)
+        torch.cuda.synchronize()
+        dx, dl = (xk - xp).abs().amax(1), (lk - lp).abs()
+        ex, el = float(dx[far].max()), float(dl[far].max())
+        beyond = int(((dx > REFINE_ATOL) | (dl > REFINE_ATOL)).sum())
+        allowed = math.ceil(BAND_SHARE * n)
+        print(f"   refine_mlp B={n} K={MLP_STEPS}: max |dx| {ex:.3e}, "
+              f"max |dlogit| {el:.3e} outside the relu band; "
+              f"{int((~far).sum())} samples in the band, {beyond} beyond "
+              f"{REFINE_ATOL} (at most {allowed} allowed; max |dx| "
+              f"{float(dx.max()):.3e} over all; refinement moved x by "
+              f"{moved:.3e})")
+        if not (ex <= REFINE_ATOL and el <= REFINE_ATOL):
+            raise AssertionError("MLP refine kernel disagrees with its "
+                                 f"plain version beyond {REFINE_ATOL}")
+        if beyond > allowed:
+            raise AssertionError(f"{beyond} relu-band samples of {n} differ "
+                                 f"beyond {REFINE_ATOL}; at most {allowed} "
+                                 "may")
+        worst = max(worst, ex, el)
+    return worst
+
+
 def pool_data_fn(torch, dev, n_pool=4096, seed=11):
     """Real batches for shaping: a seeded pool of smooth [-1, 1] images."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -278,7 +425,7 @@ def main_path(torch, dev):
         plain_s = time.perf_counter() - t0
         print(f"   plain path ({label} model): {plain_s * 1e3:.1f} ms wall, "
               f"{n / plain_s:.1f} refined samples/s")
-    return launches, n / seconds
+    return launches, n / seconds, (bundle, g, res.aux["shaped_d"])
 
 
 def small_reference(torch, dev):
@@ -307,6 +454,189 @@ def small_reference(torch, dev):
     if not (ex <= REFINE_ATOL and el <= REFINE_ATOL):
         raise AssertionError("kernel refine path disagrees with the autograd "
                              "path")
+
+
+def toy2d_path(torch, dev):
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.data.synthetic2d import (
+        make_mixture,
+        sample_mixture,
+    )
+    from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.ops.accept import (
+        drs_accept_mask_philox,
+    )
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+
+    cfg = get_preset("toy2d")
+    rcfg = cfg.refine  # the full preset: 40 rounds x 256, burn-in 2048
+    bundle = make_bundle(cfg.model)
+    g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    spec = make_mixture(cfg.data.dataset, cfg.data.ring_radius,
+                        cfg.data.mixture_std)
+
+    def data_fn(generator, n):
+        return sample_mixture(generator, spec, n), None
+
+    def run(seed, c=rcfg):
+        return sample(bundle, g, d, c,
+                      torch.Generator(device=dev).manual_seed(seed),
+                      method="collab", data_fn=data_fn)
+
+    run(1)  # warm-up: allocator
+    torch.cuda.synchronize()
+    fused_refine_mlp.launches = 0
+    drs_accept_mask_philox.launches = 0
+    t0 = time.perf_counter()
+    res = run(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"refine_mlp": fused_refine_mlp.launches,
+                "drs_accept": drs_accept_mask_philox.launches}
+
+    n = res.samples.shape[0]
+    rate = res.accept_rate
+    steps_done = res.aux["shaping_steps_done"]
+    finite = bool(torch.isfinite(res.samples).all()
+                  and torch.isfinite(res.logits).all())
+    burn = max(1, rcfg.burn_in // rcfg.batch_size)
+    phase(f"toy2d: collab, {rcfg.num_batches} rounds x {rcfg.batch_size} "
+          f"(+{burn} burn-in rounds), K={rcfg.steps}, rate {rcfg.rate}, "
+          f"shape_every={rcfg.shape_every}, {cfg.data.dataset}")
+    print(f"   samples {tuple(res.samples.shape)} finite={finite}, "
+          f"accept rate {rate:.4f}, shaping steps {steps_done}, "
+          f"M {float(res.aux['logit_max']):.4f}")
+    print(f"   launches {launches}")
+    print(f"   {seconds * 1e3:.1f} ms wall, {n / seconds:.1f} refined "
+          "samples/s (burn-in included)")
+    metrics = {}
+    for label, w in (("all", None), ("accepted", res.accepted.float())):
+        m = {k: float(v) for k, v in metrics_2d(res.samples, spec,
+                                                weights=w).items()}
+        metrics[label] = m
+        print(f"   metrics_2d ({label}, random weights): %HQ "
+              f"{m['pct_hq']:.4f}, KL {m['kl']:.4f}, modes covered "
+              f"{m['modes_covered']:.0f} of {spec.means.shape[0]}")
+    if tuple(res.samples.shape) != (rcfg.num_batches * rcfg.batch_size,
+                                    cfg.model.data_dim) or not finite:
+        raise AssertionError("toy2d samples are not finite of the expected "
+                             "shape")
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"toy2d accept rate {rate} is not in (0, 1)")
+    if steps_done <= 0:
+        raise AssertionError("no shaping step was taken on toy2d")
+    for m in metrics.values():
+        if not (0.0 <= m["pct_hq"] <= 1.0 and math.isfinite(m["kl"])
+                and m["kl"] >= -1e-6
+                and 0 <= m["modes_covered"] <= spec.means.shape[0]):
+            raise AssertionError(f"toy2d metrics out of range: {m}")
+    want = {"refine_mlp": burn + rcfg.num_batches,
+            "drs_accept": rcfg.num_batches}
+    if launches != want:
+        raise AssertionError(f"toy2d launches {launches}, expected {want}")
+
+    # The same path with the kernels off (autograd refinement, torch.rand
+    # accept), for its wall time only.
+    plain_cfg = dataclasses.replace(rcfg, use_pallas=False)
+    run(1, plain_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(2, plain_cfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print(f"   plain path: {plain_s * 1e3:.1f} ms wall, {n / plain_s:.1f} "
+          "refined samples/s")
+    print_profile("toy2d collab, one more run", *profiled(torch,
+                                                         lambda: run(3)))
+    return launches, n / seconds, (bundle, g, res.aux["shaped_d"])
+
+
+def toy2d_small_reference(torch, dev):
+    """Kernel refine path vs autograd refine path through the toy2d model
+    on a small input: the refinement sampler's output agrees."""
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+
+    cfg = get_preset("toy2d")
+    bundle = make_bundle(cfg.model)
+    g, d = bundle.init(torch.Generator(device=dev).manual_seed(5))
+    rcfg = dataclasses.replace(cfg.refine, num_batches=1, batch_size=64)
+    outs = [sample(bundle, g, d, dataclasses.replace(rcfg, use_pallas=k),
+                   torch.Generator(device=dev).manual_seed(9),
+                   method="refinement") for k in (True, False)]
+    ex = float((outs[0].samples - outs[1].samples).abs().max())
+    el = float((outs[0].logits - outs[1].logits).abs().max())
+    print(f"   refinement sampler, kernel vs autograd path (B=64, f32): "
+          f"max |dx| {ex:.3e}, max |dlogit| {el:.3e}")
+    if not (ex <= REFINE_ATOL and el <= REFINE_ATOL):
+        raise AssertionError("MLP kernel refine path disagrees with the "
+                             "autograd path")
+
+
+def serving_phase(torch, dev, toy, mnist):
+    """``ServingSampler(..., "collab").generate`` on each preset under its
+    shaped D, with the launch counters of the kernels it must reach."""
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.ops.accept import (
+        drs_accept_mask_philox,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28,
+    )
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+    from collaborative_gan_sampling_torch.sampling.serve import (
+        ServingSampler,
+    )
+
+    counters = {"refine_mlp": fused_refine_mlp,
+                "conv_refine28": fused_refine_conv28,
+                "drs_accept": drs_accept_mask_philox}
+    cases = (("toy2d", toy, 100_000, torch.float32,
+              ("refine_mlp", "drs_accept")),
+             ("mnist", mnist, 4_096, torch.uint8,
+              ("conv_refine28", "drs_accept")))
+    phase("serving: ServingSampler(collab).generate under the shaped D")
+    for name, (bundle, g, d), n, dtype, kernels in cases:
+        srv = ServingSampler(bundle, get_preset(name).refine, "collab")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        samples, labels, stats = srv.generate(
+            g, d, torch.Generator(device=dev).manual_seed(5), n=n)
+        wall = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in kernels}
+        print(f"   {name}: {tuple(samples.shape)} {samples.dtype}, "
+              f"{wall * 1e3:.1f} ms wall, {n / wall:.1f} accepted samples/s "
+              f"over the whole call (calibration and first round included),"
+              f" accept rate {stats['accept_rate']:.4f}, launches "
+              f"{launches}")
+        print(f"   {name} stats {json.dumps(stats)}")
+        if (tuple(samples.shape) != (n, *bundle.data_shape)
+                or samples.dtype != dtype or labels is not None):
+            raise AssertionError(f"{name} serving returned "
+                                 f"{tuple(samples.shape)} {samples.dtype}")
+        if dtype == torch.float32 and not bool(torch.isfinite(samples).all()):
+            raise AssertionError(f"{name} serving returned non-finite "
+                                 "samples")
+        if not 0.0 < stats["accept_rate"] < 1.0:
+            raise AssertionError(f"{name} serving accept rate "
+                                 f"{stats['accept_rate']}")
+        for k, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"kernel {k} was not launched while "
+                                     f"serving {name}")
+        if name == "toy2d":
+            print_profile("toy2d serving, n = 20,000", *profiled(
+                torch, lambda: srv.generate(
+                    g, d, torch.Generator(device=dev).manual_seed(6),
+                    n=20_000)))
 
 
 def timing(torch, dev):
@@ -343,6 +673,42 @@ def timing(torch, dev):
         plain_ms=time_ms(lambda: A.drs_accept_mask_philox_plain(
             seed, logits, m, gamma), iters=200),
         flops=20 * BATCH, bytes=4 * BATCH + BATCH + 8 + 8)
+    # The parity entry of the accept kernel, u from the caller.
+    u = torch.rand(BATCH, device=dev, generator=gen)
+    out["drs_accept_from_uniform"] = dict(
+        ms=time_ms(lambda: A.drs_accept_mask_from_uniform(u, logits, m,
+                                                          gamma), iters=200),
+        plain_ms=time_ms(lambda: A.drs_accept_mask_from_uniform_plain(
+            u, logits, m, gamma), iters=200),
+        flops=20 * BATCH, bytes=8 * BATCH + BATCH + 8)
+
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+        mlp_params_from_d,
+        refine_flops_per_sample as mlp_flops_per_sample,
+        refine_mlp_plain,
+    )
+
+    d_mlp, gen = mlp_d(torch, dev)
+    params = mlp_params_from_d(d_mlp)
+    for n in (BATCH, 65536):
+        x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
+        # The kernel's own device time per launch, apart from the
+        # wrapper's host work (which bounds back-to-back calls at small B).
+        _, kernels, _ = profiled(torch, lambda: [fused_refine_mlp(
+            params, x0, MLP_STEPS, MLP_RATE) for _ in range(10)])
+        device = sum(ms for k, (ms, _) in kernels.items()
+                     if "refine_kernel" in k) / 10
+        name = "refine_mlp" if n == BATCH else f"refine_mlp B={n}"
+        out[name] = dict(
+            ms=time_ms(lambda: fused_refine_mlp(params, x0, MLP_STEPS,
+                                                MLP_RATE)),
+            device=device,
+            plain_ms=time_ms(lambda: refine_mlp_plain(params, x0, MLP_STEPS,
+                                                      MLP_RATE)),
+            flops=mlp_flops_per_sample(MLP_STEPS, 2, 128, 3) * n,
+            bytes=4 * (2 * x0.numel() + n
+                       + sum(w.numel() + b.numel() for w, b in params)))
     for row in out.values():
         t_ops = row["flops"] / PEAK_F32_FLOPS * 1e3
         t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -364,11 +730,19 @@ def main() -> None:
     phase("kernels against their plain versions")
     err_accept = accept_cases(torch, dev)
     err_refine = refine_cases(torch, dev)
+    err_mlp = mlp_refine_cases(torch, dev)
 
-    launches, samples_per_s = main_path(torch, dev)
+    launches, samples_per_s, mnist_served = main_path(torch, dev)
     small_reference(torch, dev)
+    toy_launches, toy_samples_per_s, toy_served = toy2d_path(torch, dev)
+    toy2d_small_reference(torch, dev)
+    # Each path ran with its counters set to 0 just before; the accept
+    # kernel serves both, so its row counts both runs.
+    launches["refine_mlp"] = toy_launches["refine_mlp"]
+    launches["drs_accept"] += toy_launches["drs_accept"]
+    serving_phase(torch, dev, toy_served, mnist_served)
 
-    phase("timing at the main path's shapes (CUDA events)")
+    phase("timing at the main paths' shapes (CUDA events)")
     times = timing(torch, dev)
     rows = []
     meta = {
@@ -381,18 +755,28 @@ def main() -> None:
             source="collaborative_gan_sampling_torch/csrc/drs_accept.cu",
             replaces="collaborative_gan_sampling_tpu/ops/accept_pallas.py:83",
             max_abs_err=err_accept),
+        "refine_mlp": dict(
+            source="collaborative_gan_sampling_torch/csrc/refine_mlp.cu",
+            replaces="collaborative_gan_sampling_tpu/ops/refine_pallas.py:109",
+            max_abs_err=err_mlp),
     }
+    for name, t in times.items():
+        device = (f"; {t['device']:.4f} ms on the device" if "device" in t
+                  else "")
+        print(f"   {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.6f} ms by {t['bound_by']}){device}")
     for name, info in meta.items():
         t = times[name]
-        print(f"   {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.6f} ms by {t['bound_by']})")
         rows.append({"name": name, "route": "cuda", "source": info["source"],
                      "replaces": info["replaces"],
                      "launches": launches[name],
                      "max_abs_err": info["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None})
-    print(f"   collab main path: {samples_per_s:.1f} refined samples/s")
+    print(f"   collab main path (mnist): {samples_per_s:.1f} refined "
+          "samples/s")
+    print(f"   collab main path (toy2d): {toy_samples_per_s:.1f} refined "
+          "samples/s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ The port's own copy of the JAX package's ``config.py``: the same frozen
 dataclasses, field names and presets, so a config written for one package
 reads the same in the other. Only ``use_pallas`` changes meaning: here it
 selects the hand-written CUDA kernels (``ops/accept.py``,
-``ops/conv_refine.py``).
+``ops/conv_refine.py``, ``ops/refine_mlp.py``).
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Any
 class ModelConfig:
     """Architecture of the (G, D) pair.
 
-    ``kind='dcgan'``: transposed-conv generator and conv discriminator for
-    28x28x1 .. 64x64x3 images. ``kind='mlp'`` (the 2D synthetic models) and
-    ``num_classes > 0`` (class-conditional models) are not ported yet.
+    ``kind='mlp'``: relu MLPs for the 2D synthetic mixtures (``data_dim``,
+    ``*_hidden``, ``*_layers``). ``kind='dcgan'``: transposed-conv generator
+    and conv discriminator for 28x28x1 .. 64x64x3 images. ``num_classes > 0``
+    (class-conditional models) is not ported yet.
     """
 
     kind: str = "mlp"  # 'mlp' | 'dcgan'

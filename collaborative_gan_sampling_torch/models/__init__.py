@@ -4,7 +4,8 @@ In the JAX package the bundle is stateless and variables travel beside it; in
 the port the (G, D) state lives in ``nn.Module``s that ``init`` creates, and
 the bundle's methods take those modules where the JAX methods take variables:
 
-* ``bundle.generate(g, z, train=False)`` -> samples (B, H, W, C),
+* ``bundle.generate(g, z, train=False)`` -> samples (B, data_dim) for the
+  MLP pair, (B, H, W, C) for the DCGAN pair,
 * ``bundle.discriminate(d, x, train=False)`` -> logits (B,); with
   ``train=True`` BatchNorm uses batch statistics and updates its running
   averages in place,
@@ -23,6 +24,10 @@ from collaborative_gan_sampling_torch.models.dcgan import (
     DCGANGenerator,
     num_stages,
     reset_parameters,
+)
+from collaborative_gan_sampling_torch.models.mlp import (
+    MLPDiscriminator,
+    MLPGenerator,
 )
 
 
@@ -44,7 +49,7 @@ class GANBundle:
     cfg: ModelConfig
     device: torch.device
     z_dim: int
-    data_shape: tuple[int, ...]  # per-sample shape (H, W, C)
+    data_shape: tuple[int, ...]  # per-sample shape: (2,) or (H, W, C)
     num_classes: int = 0
 
     @property
@@ -61,25 +66,33 @@ class GANBundle:
                            device=self.device)
 
     def init(self, generator: torch.Generator
-             ) -> tuple[DCGANGenerator, DCGANDiscriminator]:
-        """Fresh (G, D) modules on the bundle's device, DCGAN-initialised
-        from ``generator`` (G first, then D)."""
+             ) -> tuple[torch.nn.Module, torch.nn.Module]:
+        """Fresh (G, D) modules on the bundle's device, initialised from
+        ``generator`` (G first, then D): lecun-normal for the MLP pair, the
+        DCGAN init for the DCGAN pair."""
         c = self.cfg
-        g = DCGANGenerator(c.image_size, c.channels, c.g_base_filters,
-                           c.z_dim, self.dtype).to(self.device)
-        d = DCGANDiscriminator(c.image_size, c.channels, c.d_base_filters,
-                               self.dtype).to(self.device)
+        if c.kind == "mlp":
+            g = MLPGenerator(c.z_dim, c.g_hidden, c.g_layers, c.data_dim,
+                             self.dtype)
+            d = MLPDiscriminator(c.data_dim, c.d_hidden, c.d_layers,
+                                 self.dtype)
+        else:
+            g = DCGANGenerator(c.image_size, c.channels, c.g_base_filters,
+                               c.z_dim, self.dtype)
+            d = DCGANDiscriminator(c.image_size, c.channels,
+                                   c.d_base_filters, self.dtype)
+        g, d = g.to(self.device), d.to(self.device)
         reset_parameters(g, generator)
         reset_parameters(d, generator)
         return g.eval(), d.eval()
 
-    def generate(self, g: DCGANGenerator, z: torch.Tensor,
+    def generate(self, g: torch.nn.Module, z: torch.Tensor,
                  labels: torch.Tensor | None = None,
                  train: bool = False) -> torch.Tensor:
         _unconditional(labels)
         return g.train(train)(z)
 
-    def discriminate(self, d: DCGANDiscriminator, x: torch.Tensor,
+    def discriminate(self, d: torch.nn.Module, x: torch.Tensor,
                      labels: torch.Tensor | None = None,
                      train: bool = False) -> torch.Tensor:
         _unconditional(labels)
@@ -95,9 +108,11 @@ def _unconditional(labels) -> None:
 def make_bundle(cfg: ModelConfig, device: str | torch.device | None = None
                 ) -> GANBundle:
     device = resolve_device(device)
+    if cfg.kind == "mlp":  # the 2D synthetic models are unconditional
+        return GANBundle(cfg=cfg, device=device, z_dim=cfg.z_dim,
+                         data_shape=(cfg.data_dim,), num_classes=0)
     if cfg.kind != "dcgan":
-        raise NotImplementedError(
-            f"model.kind={cfg.kind!r} is not ported yet (only 'dcgan')")
+        raise ValueError(f"unknown model kind {cfg.kind!r}")
     if cfg.num_classes > 0:
         raise NotImplementedError(
             "class-conditional models are not ported yet")

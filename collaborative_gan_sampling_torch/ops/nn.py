@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 DCGAN_INIT_STD = 0.02  # carpedm20 DCGAN init: N(0, 0.02) kernels, zero bias
+# Std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
+LECUN_TRUNC_STD = 0.87962566103423978
 
 
 def lrelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -118,6 +120,23 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LecunDense(Dense):
+    """``nn.Dense`` with Flax's default init (the MLP models): lecun-normal
+    kernels, i.e. a unit normal truncated at +-2 and scaled to
+    std sqrt(1 / fan_in) / 0.8796 (the truncated normal's own std), zero
+    bias."""
+
+    def reset_parameters(self, generator=None) -> None:
+        fan_in = self.weight.shape[1]
+        std = (1.0 / fan_in) ** 0.5 / LECUN_TRUNC_STD
+        dev = generator.device if generator is not None else self.weight.device
+        w = torch.empty(self.weight.shape, device=dev)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        with torch.no_grad():
+            self.weight.copy_(w * std)
+        nn.init.zeros_(self.bias)
 
 
 class FlaxBatchNorm(nn.Module):

@@ -7,11 +7,12 @@ Counterpart of ``collaborative_gan_sampling_tpu/sampling/refine.py``:
 with optional per-sample gradient clipping, Langevin noise, a per-sample
 stop score and a proximal pull toward x_0. D runs in eval mode, so it is
 per-sample decoupled and the gradient of the summed loss is each sample's
-own. Where ``ops/conv_refine.supports_conv_refine_kernel`` holds, the K steps
-run as the fused conv-D kernel (its plain version on the CPU); elsewhere
-they run as autograd steps (``_refine_steps``, the counterpart of JAX's
-``_refine_scan``). Latent-space refinement (``space='z'``) is not ported
-yet.
+own. Where ``ops/conv_refine.supports_conv_refine_kernel`` or
+``ops/refine_mlp.supports_mlp_refine_kernel`` holds, the K steps run as the
+fused conv-D or MLP-D kernel (its plain version on the CPU), at any rate;
+elsewhere they run as autograd steps (``_refine_steps``, the counterpart of
+JAX's ``_refine_scan``). Latent-space refinement (``space='z'``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ from collaborative_gan_sampling_torch.ops.conv_refine import (
     supports_conv_refine_kernel,
 )
 from collaborative_gan_sampling_torch.ops.conv_refine_ref import fold_dcgan_d
+from collaborative_gan_sampling_torch.ops.refine_mlp import (
+    fused_refine_mlp,
+    mlp_params_from_d,
+    supports_mlp_refine_kernel,
+)
 
 OBJECTIVES = ("ns", "kl", "saturating")
 
@@ -82,6 +88,11 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
                                        return_trajectory):
             x_k, logits = fused_refine_conv28(fold_dcgan_d(d), x0, steps,
                                               rate)
+            return x_k, {"logits": logits}
+        if supports_mlp_refine_kernel(bundle, cfg, labels,
+                                      return_trajectory):
+            x_k, logits = fused_refine_mlp(mlp_params_from_d(d), x0, steps,
+                                           rate)
             return x_k, {"logits": logits}
         return _refine_steps(d, x0, labels, generator, rate)
 

@@ -1,0 +1,179 @@
+"""Serving path: one calibrated (G, D) pair and a stream of requests for
+accepted samples.
+
+Counterpart of ``collaborative_gan_sampling_tpu/sampling/serve.py``. Where
+the JAX sampler compiles its round once, PyTorch runs eagerly, so a round
+here is a loop of ``num_batches`` draws that stays on the device; the
+kernels it reaches (the MLP- or conv-D refinement and the DRS accept step)
+are built once, at their first launch. DRS calibration (the burn-in logit
+max M) runs once per ``generate`` and is carried as a 0-d device tensor.
+
+Methods, the serving view of collab sampling:
+
+    standard     raw G(z); accept all
+    refinement   K-step refinement; accept all
+    reject       DRS on raw G(z)
+    collab       refinement + DRS under a *shaped* D: shaping happens once,
+                 before serving (``sample(..., method="collab")`` returns the
+                 shaped D in ``aux['shaped_d']``); requests never change D.
+
+Class-conditional serving (``class_id``, per-class DRS) waits for the
+class-conditional models, which are not ported yet. MH-GAN is not offered,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from collaborative_gan_sampling_torch.config import RefineConfig
+from collaborative_gan_sampling_torch.data.images import denormalize_images
+from collaborative_gan_sampling_torch.models import GANBundle
+from collaborative_gan_sampling_torch.sampling.refine import (
+    make_draw_refine_fn,
+)
+from collaborative_gan_sampling_torch.sampling.rejection import (
+    drs_accept_mask,
+    estimate_logit_max,
+)
+
+SERVING_METHODS = ("standard", "refinement", "reject", "collab")
+
+
+class ServingSampler:
+    """Sampler for one (bundle, RefineConfig, method) triple.
+
+    Usage:
+        srv = ServingSampler(bundle, cfg, method="collab")
+        m = srv.calibrate(g, shaped_d, generator)           # burn-in, once
+        x, labels, acc, logits = srv.round(g, shaped_d, m, generator)
+        samples, labels, stats = srv.generate(g, shaped_d, generator, n)
+    """
+
+    def __init__(self, bundle: GANBundle, cfg: RefineConfig,
+                 method: str = "collab", class_id: int | None = None):
+        if method not in SERVING_METHODS:
+            raise ValueError(
+                f"serving supports {SERVING_METHODS}, not {method!r}")
+        if class_id is not None:
+            raise NotImplementedError(
+                "class-conditional serving (class_id) is not ported yet")
+        self.bundle, self.cfg, self.method = bundle, cfg, method
+        self._refine_on = method in ("refinement", "collab")
+        self._reject_on = method in ("reject", "collab")
+        self._draw_refine = (make_draw_refine_fn(bundle, cfg)
+                             if self._refine_on else None)
+
+    def _draw_score(self, g, d, generator, n: int):
+        """One candidate batch and its final logits (refined when on)."""
+        if self._refine_on:
+            return self._draw_refine(g, d, generator, n)
+        z = self.bundle.sample_z(generator, n)
+        with torch.no_grad():
+            x = self.bundle.generate(g, z, train=False)
+            return x, None, self.bundle.discriminate(d, x, train=False)
+
+    def calibrate(self, g, d, generator: torch.Generator | None
+                  ) -> torch.Tensor:
+        """Burn-in DRS calibration M (a 0-d 0.0 for accept-all methods)."""
+        if not self._reject_on:
+            return torch.zeros((), device=self.bundle.device)
+
+        def burn(gen, n):
+            x, labels, _ = self._draw_score(g, d, gen, n)
+            return x, labels
+
+        return estimate_logit_max(self.bundle, d, burn, generator,
+                                  self.cfg.burn_in, self.cfg.batch_size)
+
+    def round(self, g, d, m: torch.Tensor,
+              generator: torch.Generator | None):
+        """One serving round: (samples, None, accept, logits) with
+        ``num_batches * batch_size`` candidates, all on the device."""
+        cfg = self.cfg
+        xs, accs, logits = [], [], []
+        for _ in range(cfg.num_batches):
+            x, _, lg = self._draw_score(g, d, generator, cfg.batch_size)
+            if self._reject_on:
+                acc = drs_accept_mask(generator, lg, m, cfg.gamma,
+                                      cfg.eps_drs, cfg.gamma_percentile,
+                                      use_pallas=cfg.use_pallas)
+            else:
+                acc = torch.ones(lg.shape, dtype=torch.bool, device=lg.device)
+            xs.append(x)
+            accs.append(acc)
+            logits.append(lg)
+        return torch.cat(xs), None, torch.cat(accs), torch.cat(logits)
+
+    @staticmethod
+    def compact(x: torch.Tensor, acc: torch.Tensor, cap: int,
+                quantize: bool) -> tuple[torch.Tensor, int]:
+        """The first ``cap`` accepted rows, gathered on the device (uint8 by
+        ``denormalize_images`` when ``quantize``) and then fetched to the
+        host, so the transfer is O(accepted), not O(candidates). Returns
+        (rows, count)."""
+        idx = torch.nonzero(acc)[:cap, 0]
+        x_sel = x[idx]
+        if quantize:
+            x_sel = denormalize_images(x_sel)
+        return x_sel.cpu(), int(idx.shape[0])
+
+    def generate(self, g, d, generator: torch.Generator | None, n: int,
+                 max_rounds: int = 1000, quantize_images: bool = True):
+        """Run rounds until >= n samples are accepted.
+
+        Returns (samples[n] on the host, None, stats). Image samples come
+        back uint8 in [0, 255] by default (quantized on the device, before
+        the fetch); 2D samples stay float32. The first round, which also
+        builds the kernels and sizes the compaction buffer, keeps its
+        samples but is left out of the reported rate."""
+        quantize = quantize_images and len(self.bundle.data_shape) == 3
+        m = self.calibrate(g, d, generator)
+        per_round = self.cfg.num_batches * self.cfg.batch_size
+        x0, _, acc0, _ = self.round(g, d, m, generator)
+        rate0 = float(acc0.float().mean())
+        # 30% headroom; a round that overflows contributes `cap` samples
+        # (the first k of an iid accepted set are still unbiased).
+        cap = min(per_round, max(64, int(per_round * (1.3 * rate0 + 0.05))))
+
+        xs, total, rounds, overflow = [], 0, 0, 0
+
+        def take(x, acc):
+            nonlocal total, rounds, overflow
+            x_sel, k = self.compact(x, acc, cap, quantize)
+            overflow += int(acc.sum()) - k
+            xs.append(x_sel)
+            total += k
+            rounds += 1
+            return k
+
+        warm = take(x0, acc0)
+        timed = 0
+        t0 = time.perf_counter()
+        while total < n:
+            if rounds >= max_rounds:
+                raise RuntimeError(
+                    f"generate: {total}/{n} accepted after {rounds} rounds "
+                    f"(accept rate too low - relax gamma/gamma_percentile)")
+            x, _, acc, _ = self.round(g, d, m, generator)
+            timed += take(x, acc)
+        dt = time.perf_counter() - t0
+
+        samples = torch.cat(xs)[:n]
+        stats = {
+            "n": int(n),
+            "rounds": rounds,
+            "candidates": rounds * per_round,
+            "accept_rate": (total + overflow) / (rounds * per_round),
+            "overflow_dropped": overflow,
+            "seconds": dt,
+            # Accepted samples per second over the rounds after the first;
+            # None when the first round alone satisfied n.
+            "samples_per_sec": timed / dt if timed else None,
+            "warmup_samples": warm,
+            "dtype": "uint8" if quantize else "float32",
+            "method": self.method,
+        }
+        return samples, None, stats
