@@ -10,13 +10,20 @@ Phases, each of which raises (and exits non-zero) on failure:
 2. build   - compiles every kernel of ``collaborative_gan_sampling_torch/
              csrc`` with nvcc (one process per source, all at once);
 3. kernels - holds each kernel against its plain PyTorch version on the card
-             at the main paths' shapes (and a ragged batch), TF32 off;
+             at the main paths' shapes (and a ragged batch), TF32 off; the
+             bf16 conv refine kernel also against the f32 one, from which it
+             must differ by more than its bounds;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
              width (DCGAN 28x28x1, 64/64 filters, z = 100, K = 10, batch 256,
-             bf16 compute) from a random init, with real batches from a
-             seeded pool of images; launch counters are set to 0 just before
-             and read just after; then the kernel and plain refine paths are
-             held against each other on a small input;
+             the preset's bf16 compute) from a random init, with real batches
+             from the port's image stream (``load_image_dataset``: 20,000
+             procedural images on the card); launch counters are set to 0
+             just before and read just after (the bf16 refine kernel 12
+             times, the f32 one 0); the same path with the kernels off; a
+             shorter f32 collab run (the f32 refine kernel's launches); one
+             ``sample(..., method="mhgan")`` run (chains of 40); then the f32
+             kernel and autograd refine paths held against each other on a
+             small input;
 5. toy2d   - ``sample(..., method="collab")`` on the ``toy2d`` preset at full
              width (MLP D and G of 3 x 128 relu layers over 2-D points,
              z = 4, K = 10, rate 0.1, 40 rounds of 256, burn-in 2048, f32)
@@ -34,8 +41,9 @@ Phases, each of which raises (and exits non-zero) on failure:
              device time per launch from torch.profiler), beside the least
              time the card could take.
 
-Phases 5 and 6 also profile one more toy2d run each with torch.profiler
-(device busy share, kernels by device time, ops by host time).
+Phases 4, 5 and 6 also profile one more mnist or toy2d run with
+torch.profiler (device busy share, kernels by device time, ops by host
+time).
 
 The line before the last is a JSON object with one row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Needs no network.
@@ -55,18 +63,24 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12  # float32 on the CUDA cores
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
 
 BATCH, STEPS, RATE = 256, 10, 0.02  # the mnist preset's refine shape
 RAGGED = 37
 REFINE_ATOL = 1e-5  # f32 sums in another order over K = 10 steps
+# The bf16 kernel against its plain version: the same f32 sums of exact
+# bf16 products in another order, which may also put a sum on the other
+# side of a bf16 rounding midpoint (one operand one bf16 ulp apart).
+BF16_ATOL_X, BF16_ATOL_LOGIT = 1e-5, 1e-4
 ACCEPT_BAND = 1e-6  # masks may differ only where |u - p| < 1e-6
 MLP_STEPS, MLP_RATE = 10, 0.1  # the toy2d preset's refine shape
 MLP_BATCHES = (256, 37, 65536)  # main path, ragged, large
 # relu' may differ between the MLP kernel and its plain version only where a
 # pre-activation lies within float32 rounding of 0; samples whose plain run
 # came within RELU_BAND of 0 at any unit and step are held to REFINE_ATOL
-# only as a group: at most BAND_SHARE of the batch may exceed it.
+# only as a group: at most BAND_SHARE of the batch may exceed it. The bf16
+# conv kernel's samples are held to BAND_SHARE likewise (bf16_refine_cases).
 RELU_BAND = 1e-5
 BAND_SHARE = 1e-3
 
@@ -252,6 +266,108 @@ def refine_cases(torch, dev):
     return worst
 
 
+def kink_margin(torch, params, x):
+    """Per sample, the least |pre-activation| of any h1 or h2 unit in the
+    bf16 plain version's forward at x (B, 28, 28, 1)."""
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        preactivations_bf16,
+    )
+
+    a0, a1 = preactivations_bf16(params, x.permute(0, 3, 1, 2))
+    return torch.minimum(a0.abs().flatten(1).amin(1),
+                         a1.abs().flatten(1).amin(1))
+
+
+def name_jump(torch, params, x0):
+    """For one sample x0 (1, 28, 28, 1): the step k whose error against the
+    plain version grew most, the error of that one step run by both from
+    the kernel's own x_{k-1}, and the plain forward's least |pre-activation|
+    there. A discrete lrelu' flip shows as one step that carries the whole
+    error, from an x where some unit lies near its kink."""
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28_bf16 as kernel,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        refine_conv28_plain_bf16 as plain,
+    )
+
+    errs = [0.0]
+    for k in range(1, STEPS + 1):
+        errs.append(float((kernel(params, x0, k, RATE)[0]
+                           - plain(params, x0, k, RATE)[0]).abs().max()))
+    k = max(range(1, STEPS + 1), key=lambda i: errs[i] - errs[i - 1])
+    x_prev = kernel(params, x0, k - 1, RATE)[0]
+    one = float((kernel(params, x_prev, 1, RATE)[0]
+                 - plain(params, x_prev, 1, RATE)[0]).abs().max())
+    return k, one, float(kink_margin(torch, params, x_prev)[0])
+
+
+def bf16_refine_cases(torch, dev):
+    """The bf16 kernel against its plain version, and its distance from the
+    f32 kernel on the same input, which must exceed the bounds: the operands
+    are really rounded. lrelu' may differ between the two versions where a
+    pre-activation lies near 0: the two sum in another order, a sum may fall
+    on the other side of a bf16 rounding midpoint, and the operand it rounds
+    to moves by one bf16 ulp. Every sample has some of its 18,816 units near
+    a kink at some step, so no band can be named in advance; as for the MLP
+    kernel's relu band, at most BAND_SHARE of the batch may exceed the
+    bounds, and each such sample is named with the step whose error jumped
+    and the one-step error from the same x there."""
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28,
+        fused_refine_conv28_bf16,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        fold_dcgan_d,
+        refine_conv28_plain_bf16,
+    )
+
+    d, gen = refine_d(torch, dev)
+    params = fold_dcgan_d(d)
+    worst = 0.0
+    for n in (BATCH, RAGGED):
+        x0 = torch.randn(n, 28, 28, 1, device=dev, generator=gen) * 0.5
+        xk, lk = fused_refine_conv28_bf16(params, x0, STEPS, RATE)
+        x32, l32 = fused_refine_conv28(params, x0, STEPS, RATE)
+        torch.cuda.synchronize()
+        with torch.backends.cudnn.flags(enabled=False):
+            xp, lp = refine_conv28_plain_bf16(params, x0, STEPS, RATE)
+        dx, dl = (xk - xp).abs().flatten(1).amax(1), (lk - lp).abs()
+        beyond = ((dx > BF16_ATOL_X) | (dl > BF16_ATOL_LOGIT)).nonzero()
+        allowed = math.ceil(BAND_SHARE * n)
+        inside = torch.ones_like(dx, dtype=torch.bool)
+        inside[beyond[:, 0]] = False
+        ex, el = float(dx[inside].max()), float(dl[inside].max())
+        gx = float((xk - x32).abs().max())
+        gl = float((lk - l32).abs().max())
+        moved = float((xp - x0).abs().max())
+        print(f"   conv_refine28_bf16 B={n} K={STEPS}: max |dx| {ex:.3e}, "
+              f"max |dlogit| {el:.3e} over the samples within the bounds "
+              f"({BF16_ATOL_X:.0e}, {BF16_ATOL_LOGIT:.0e}); {len(beyond)} "
+              f"beyond them (at most {allowed} allowed; max |dx| "
+              f"{float(dx.max()):.3e}, max |dlogit| {float(dl.max()):.3e} "
+              f"over all); from the f32 kernel: max |dx| {gx:.3e}, max "
+              f"|dlogit| {gl:.3e}; refinement moved x by {moved:.3e}")
+        with torch.backends.cudnn.flags(enabled=False):
+            for i in beyond[:, 0].tolist():
+                k, one, margin = name_jump(torch, params, x0[i:i + 1])
+                print(f"     sample {i}: |dx| {float(dx[i]):.3e}, |dlogit| "
+                      f"{float(dl[i]):.3e}; its error jumped at step {k}: "
+                      f"that one step from the kernel's x_{k - 1} differs "
+                      f"by {one:.3e}, and the plain forward there has a "
+                      f"pre-activation {margin:.3e} from its kink")
+        if len(beyond) > allowed:
+            raise AssertionError(f"{len(beyond)} samples of {n} differ beyond "
+                                 f"the bf16 kernel's bounds; at most "
+                                 f"{allowed} may")
+        if not (gx > BF16_ATOL_X and gl > BF16_ATOL_LOGIT):
+            raise AssertionError("bf16 conv refine kernel is within its "
+                                 "bounds of the f32 kernel: its operands "
+                                 "are not rounded")
+        worst = max(worst, float(dx.max()), float(dl.max()))
+    return worst
+
+
 def mlp_d(torch, dev, seed=4):
     """The toy2d D at full width (3 x 128 relu layers over 2-D points) with
     random weights and non-zero biases."""
@@ -327,104 +443,161 @@ def mlp_refine_cases(torch, dev):
     return worst
 
 
-def pool_data_fn(torch, dev, n_pool=4096, seed=11):
-    """Real batches for shaping: a seeded pool of smooth [-1, 1] images."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    noise = torch.randn(n_pool, 1, 28, 28, device=dev, generator=gen)
-    kernel = torch.ones(1, 1, 5, 5, device=dev) / 25.0
-    pool = torch.tanh(3.0 * torch.nn.functional.conv2d(noise, kernel,
-                                                       padding=2))
-    pool = pool.permute(0, 2, 3, 1).contiguous()
+def image_data_fn(dev, data_cfg):
+    """Real batches from the port's image stream: ``load_image_dataset``
+    (procedural without dataset files, 20,000 uint8 images on the card)."""
+    from collaborative_gan_sampling_torch.data.images import (
+        load_image_dataset,
+    )
+
+    ds = load_image_dataset(data_cfg, device=dev)
 
     def data_fn(generator, n):
-        idx = torch.randint(0, n_pool, (n,), generator=generator, device=dev)
-        return pool[idx], None
+        return ds.batch(generator, n)[0], None
 
-    return data_fn
+    return ds, data_fn
 
 
-def main_path(torch, dev):
-    from collaborative_gan_sampling_torch.config import get_preset
-    from collaborative_gan_sampling_torch.models import make_bundle
+def conv_counters():
+    """The launch counters of the kernels an mnist run can reach."""
     from collaborative_gan_sampling_torch.ops.accept import (
         drs_accept_mask_philox,
     )
     from collaborative_gan_sampling_torch.ops.conv_refine import (
         fused_refine_conv28,
+        fused_refine_conv28_bf16,
     )
-    from collaborative_gan_sampling_torch.sampling.collab import sample
 
-    cfg = get_preset("mnist")
-    rcfg = dataclasses.replace(cfg.refine, num_batches=8, burn_in=1024)
-    bundle = make_bundle(cfg.model)  # on the card, the preset's bf16
-    g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
-    data_fn = pool_data_fn(torch, dev)
+    return {"conv_refine28_bf16": fused_refine_conv28_bf16,
+            "conv_refine28": fused_refine_conv28,
+            "drs_accept": drs_accept_mask_philox}
 
-    def run(seed):
-        return sample(bundle, g, d, rcfg,
-                      torch.Generator(device=dev).manual_seed(seed),
-                      method="collab", data_fn=data_fn)
 
-    run(1)  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    fused_refine_conv28.launches = 0
-    drs_accept_mask_philox.launches = 0
+def counted(torch, fn, counters):
+    """fn() with every counter set to 0 just before; (its result, wall
+    seconds up to a synchronize, the counts just after)."""
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
-    res = run(2)
+    res = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"conv_refine28": fused_refine_conv28.launches,
-                "drs_accept": drs_accept_mask_philox.launches}
+    return res, seconds, {k: c.launches for k, c in counters.items()}
 
-    n = res.samples.shape[0]
+
+def check_collab(torch, res, rcfg, label, launches, want):
+    """Finite samples of the expected shape, an accept rate in (0, 1), a
+    shaping step and the expected launches."""
     rate = res.accept_rate
     steps_done = res.aux["shaping_steps_done"]
     finite = bool(torch.isfinite(res.samples).all()
                   and torch.isfinite(res.logits).all())
-    burn = max(1, rcfg.burn_in // rcfg.batch_size)
-    phase(f"main: mnist collab, {rcfg.num_batches} rounds x {rcfg.batch_size}"
-          f" (+{burn} burn-in rounds), K={rcfg.steps}, "
-          f"shape_every={rcfg.shape_every}")
     print(f"   samples {tuple(res.samples.shape)} finite={finite}, "
           f"accept rate {rate:.4f}, shaping steps {steps_done}, "
           f"M {float(res.aux['logit_max']):.4f}")
     print(f"   launches {launches}")
-    print(f"   {seconds * 1e3:.1f} ms wall, {n / seconds:.1f} refined "
-          "samples/s (burn-in included)")
     if tuple(res.samples.shape) != (rcfg.num_batches * rcfg.batch_size,
                                     28, 28, 1) or not finite:
-        raise AssertionError("collab samples are not finite of the expected "
-                             "shape")
+        raise AssertionError(f"{label} samples are not finite of the "
+                             "expected shape")
     if not 0.0 < rate < 1.0:
-        raise AssertionError(f"accept rate {rate} is not in (0, 1)")
+        raise AssertionError(f"{label} accept rate {rate} is not in (0, 1)")
     if steps_done <= 0:
-        raise AssertionError("no shaping step was taken")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+        raise AssertionError(f"no shaping step was taken on {label}")
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
 
-    # The same collab path with the kernels off (autograd refinement,
-    # torch.rand accept), for its wall time only. Inside its gate the kernel
-    # refines in f32 through the folded D, whatever the preset's dtype, so
-    # the plain path runs twice: with the preset's bf16 model, and with an
-    # f32 model whose refinement matches the kernel's precision.
+
+def main_path(torch, dev):
+    """mnist at the preset's bf16: collab (the main path), the same path
+    with the kernels off, a shorter f32 collab run, and one MH-GAN run."""
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+
+    cfg = get_preset("mnist")
+    counters = conv_counters()
+    ds, data_fn = image_data_fn(dev, cfg.data)
+    rcfg = dataclasses.replace(cfg.refine, num_batches=8, burn_in=1024)
+    bundle = make_bundle(cfg.model)  # on the card, the preset's bf16
+    g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+    def run(c, b=bundle, gm=g, dm=d, seed=2, method="collab"):
+        return sample(b, gm, dm, c,
+                      torch.Generator(device=dev).manual_seed(seed),
+                      method=method, data_fn=data_fn)
+
+    run(rcfg, seed=1)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    res, seconds, launches = counted(torch, lambda: run(rcfg), counters)
+    n = res.samples.shape[0]
+    burn = max(1, rcfg.burn_in // rcfg.batch_size)
+    phase(f"main: mnist collab, {rcfg.num_batches} rounds x {rcfg.batch_size}"
+          f" (+{burn} burn-in rounds), K={rcfg.steps}, "
+          f"shape_every={rcfg.shape_every}, {cfg.model.compute_dtype}")
+    print(f"   shaping batches from {ds.name}: {ds.n} images "
+          f"{ds.image_shape} uint8 on the card "
+          f"({ds.images.numel() / 1e6:.2f} MB)")
+    check_collab(torch, res, rcfg, "mnist collab", launches,
+                 {"conv_refine28_bf16": burn + rcfg.num_batches,
+                  "conv_refine28": 0, "drs_accept": rcfg.num_batches})
+    print(f"   {seconds * 1e3:.1f} ms wall, {n / seconds:.1f} refined "
+          "samples/s (burn-in included)")
+
+    # The same collab path with the kernels off (autograd refinement through
+    # the bf16 model, torch.rand accept), for its wall time only.
     plain_cfg = dataclasses.replace(rcfg, use_pallas=False)
+    run(plain_cfg, seed=1)
+    torch.cuda.synchronize()
+    _, plain_s, _ = counted(torch, lambda: run(plain_cfg), counters)
+    print(f"   plain path (bf16 model): {plain_s * 1e3:.1f} ms wall, "
+          f"{n / plain_s:.1f} refined samples/s")
+    print_profile("mnist collab, one more run",
+                  *profiled(torch, lambda: run(rcfg, seed=4)))
+
+    # A shorter collab run at f32, the precision of the f32 refine kernel.
+    cfg32 = dataclasses.replace(cfg.refine, num_batches=4, burn_in=512)
     bundle32 = make_bundle(dataclasses.replace(cfg.model,
                                                compute_dtype="float32"))
     g32, d32 = bundle32.init(torch.Generator(device=dev).manual_seed(0))
-    for label, (b, gm, dm) in (("bf16", (bundle, g, d)),
-                               ("f32", (bundle32, g32, d32))):
-        sample(b, gm, dm, plain_cfg, torch.Generator(device=dev).manual_seed(1),
-               method="collab", data_fn=data_fn)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sample(b, gm, dm, plain_cfg, torch.Generator(device=dev).manual_seed(2),
-               method="collab", data_fn=data_fn)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        print(f"   plain path ({label} model): {plain_s * 1e3:.1f} ms wall, "
-              f"{n / plain_s:.1f} refined samples/s")
+    res32, s32, launches32 = counted(
+        torch, lambda: run(cfg32, bundle32, g32, d32), counters)
+    burn32 = max(1, cfg32.burn_in // cfg32.batch_size)
+    phase(f"mnist collab at f32: {cfg32.num_batches} rounds x "
+          f"{cfg32.batch_size} (+{burn32} burn-in rounds), K={cfg32.steps}")
+    check_collab(torch, res32, cfg32, "mnist f32 collab", launches32,
+                 {"conv_refine28_bf16": 0,
+                  "conv_refine28": burn32 + cfg32.num_batches,
+                  "drs_accept": cfg32.num_batches})
+    print(f"   {s32 * 1e3:.1f} ms wall (no warm-up), "
+          f"{res32.samples.shape[0] / s32:.1f} refined samples/s")
+
+    # MH-GAN, the paper's third arm: Platt calibration and chain init from
+    # the image stream, the preset's chain length.
+    mcfg = dataclasses.replace(cfg.refine, num_batches=2)
+    resm, sm, launches_m = counted(torch, lambda: run(mcfg, seed=3,
+                                                      method="mhgan"),
+                                   counters)
+    mh_rate = float(resm.aux["mh_accept_rate"])
+    never = float(resm.aux["mh_never_accepted"])
+    finite = bool(torch.isfinite(resm.samples).all()
+                  and torch.isfinite(resm.logits).all())
+    phase(f"mnist mhgan: {mcfg.num_batches} rounds x {mcfg.batch_size} "
+          f"chains of {mcfg.mh_chain_len} proposals, bf16")
+    print(f"   samples {tuple(resm.samples.shape)} finite={finite}, MH accept "
+          f"rate {mh_rate:.4f}, chains that never accepted {never:.4f}, "
+          f"accepted share {resm.accept_rate:.4f}, Platt a "
+          f"{float(resm.aux['platt_a']):.4f} b "
+          f"{float(resm.aux['platt_b']):.4f}; {sm * 1e3:.1f} ms wall; "
+          f"launches {launches_m}")
+    if tuple(resm.samples.shape) != (mcfg.num_batches * mcfg.batch_size,
+                                     28, 28, 1) or not finite:
+        raise AssertionError("mhgan samples are not finite of the expected "
+                             "shape")
+    if not 0.0 < mh_rate < 1.0:
+        raise AssertionError(f"MH accept rate {mh_rate} is not in (0, 1)")
+    launches["conv_refine28"] = launches32["conv_refine28"]
+    launches["drs_accept"] += launches32["drs_accept"]
     return launches, n / seconds, (bundle, g, res.aux["shaped_d"])
 
 
@@ -582,12 +755,6 @@ def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
     from collaborative_gan_sampling_torch.config import get_preset
-    from collaborative_gan_sampling_torch.ops.accept import (
-        drs_accept_mask_philox,
-    )
-    from collaborative_gan_sampling_torch.ops.conv_refine import (
-        fused_refine_conv28,
-    )
     from collaborative_gan_sampling_torch.ops.refine_mlp import (
         fused_refine_mlp,
     )
@@ -595,13 +762,11 @@ def serving_phase(torch, dev, toy, mnist):
         ServingSampler,
     )
 
-    counters = {"refine_mlp": fused_refine_mlp,
-                "conv_refine28": fused_refine_conv28,
-                "drs_accept": drs_accept_mask_philox}
+    counters = {"refine_mlp": fused_refine_mlp, **conv_counters()}
     cases = (("toy2d", toy, 100_000, torch.float32,
               ("refine_mlp", "drs_accept")),
              ("mnist", mnist, 4_096, torch.uint8,
-              ("conv_refine28", "drs_accept")))
+              ("conv_refine28_bf16", "drs_accept")))
     phase("serving: ServingSampler(collab).generate under the shaped D")
     for name, (bundle, g, d), n, dtype, kernels in cases:
         srv = ServingSampler(bundle, get_preset(name).refine, "collab")
@@ -643,11 +808,13 @@ def timing(torch, dev):
     from collaborative_gan_sampling_torch.ops import accept as A
     from collaborative_gan_sampling_torch.ops.conv_refine import (
         fused_refine_conv28,
+        fused_refine_conv28_bf16,
         refine_flops_per_sample,
     )
     from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
         fold_dcgan_d,
         refine_conv28_plain,
+        refine_conv28_plain_bf16,
     )
 
     d, gen = refine_d(torch, dev)
@@ -661,6 +828,16 @@ def timing(torch, dev):
         plain_ms=time_ms(lambda: refine_conv28_plain(params, x0, STEPS,
                                                      RATE)),
         flops=flops, bytes=nbytes)
+    # The bf16 kernel reads w0 and w1 as bf16 (half of their f32 bytes
+    # above); its bound at the bf16 peak.
+    wbytes = 2 * (params.w0.numel() + params.w1.numel())
+    out["conv_refine28_bf16"] = dict(
+        ms=time_ms(lambda: fused_refine_conv28_bf16(params, x0, STEPS,
+                                                    RATE)),
+        plain_ms=time_ms(lambda: refine_conv28_plain_bf16(params, x0, STEPS,
+                                                          RATE)),
+        flops=flops, bytes=nbytes - wbytes,
+        peak=PEAK_BF16_FLOPS)
 
     logits = torch.randn(BATCH, device=dev, generator=gen)
     m, gamma = logits.max(), torch.tensor(0.0, device=dev)
@@ -710,7 +887,7 @@ def timing(torch, dev):
             bytes=4 * (2 * x0.numel() + n
                        + sum(w.numel() + b.numel() for w, b in params)))
     for row in out.values():
-        t_ops = row["flops"] / PEAK_F32_FLOPS * 1e3
+        t_ops = row["flops"] / row.pop("peak", PEAK_F32_FLOPS) * 1e3
         t_bytes = row["bytes"] / PEAK_BYTES_PER_S * 1e3
         row["bound_ms"] = max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -730,6 +907,7 @@ def main() -> None:
     phase("kernels against their plain versions")
     err_accept = accept_cases(torch, dev)
     err_refine = refine_cases(torch, dev)
+    err_refine_bf16 = bf16_refine_cases(torch, dev)
     err_mlp = mlp_refine_cases(torch, dev)
 
     launches, samples_per_s, mnist_served = main_path(torch, dev)
@@ -737,7 +915,7 @@ def main() -> None:
     toy_launches, toy_samples_per_s, toy_served = toy2d_path(torch, dev)
     toy2d_small_reference(torch, dev)
     # Each path ran with its counters set to 0 just before; the accept
-    # kernel serves both, so its row counts both runs.
+    # kernel serves the mnist runs and toy2d, so its row counts all three.
     launches["refine_mlp"] = toy_launches["refine_mlp"]
     launches["drs_accept"] += toy_launches["drs_accept"]
     serving_phase(torch, dev, toy_served, mnist_served)
@@ -751,6 +929,12 @@ def main() -> None:
             replaces="collaborative_gan_sampling_tpu/ops/"
                      "conv_refine_pallas.py:275",
             max_abs_err=err_refine),
+        "conv_refine28_bf16": dict(
+            source="collaborative_gan_sampling_torch/csrc/"
+                   "conv_refine28_bf16.cu",
+            replaces="collaborative_gan_sampling_tpu/ops/"
+                     "conv_refine_pallas.py:483",
+            max_abs_err=err_refine_bf16),
         "drs_accept": dict(
             source="collaborative_gan_sampling_torch/csrc/drs_accept.cu",
             replaces="collaborative_gan_sampling_tpu/ops/accept_pallas.py:83",

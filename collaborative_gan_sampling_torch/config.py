@@ -3,8 +3,10 @@
 The port's own copy of the JAX package's ``config.py``: the same frozen
 dataclasses, field names and presets, so a config written for one package
 reads the same in the other. Only ``use_pallas`` changes meaning: here it
-selects the hand-written CUDA kernels (``ops/accept.py``,
-``ops/conv_refine.py``, ``ops/refine_mlp.py``).
+selects the hand-written CUDA kernels: the DRS accept kernel
+(``ops/accept.py``), the conv-D refine kernels (``ops/conv_refine.py``: bf16
+operands on the tensor cores for a ``bfloat16`` model, f32 otherwise) and the
+MLP-D refine kernel (``ops/refine_mlp.py``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,15 @@
-"""Sampling strategies: standard, refinement, DRS reject and collab.
+"""Sampling strategies: standard, refinement, DRS reject, MH-GAN and collab.
 
 Counterpart of ``collaborative_gan_sampling_tpu/sampling/collab.py``. The
 JAX package compiles each strategy into one scanned program; here each is a
 Python loop over batch rounds that stays on the device (the burn-in M, the
-accept masks and the shaped D never leave it). ``mhgan`` is not ported yet.
+accept masks, the MH chains and the shaped D never leave it).
+
+mhgan: Platt calibration of D on one real and one G batch (identity without
+``data_fn``), then per round B chains of ``mh_chain_len`` G proposals, seeded
+with real data when ``data_fn`` is given (else with G samples). A chain that
+never accepted still holds its real initializer and is marked rejected, so
+no training image leaks into the output.
 
 collab, per round i:
   1. x, logits = K-step refined G(z) under the current (shaped) D;
@@ -21,6 +27,10 @@ import torch
 
 from collaborative_gan_sampling_torch.config import RefineConfig
 from collaborative_gan_sampling_torch.models import GANBundle
+from collaborative_gan_sampling_torch.sampling.mh import (
+    fit_platt,
+    make_mh_sampler,
+)
 from collaborative_gan_sampling_torch.sampling.refine import (
     make_draw_refine_fn,
 )
@@ -30,7 +40,7 @@ from collaborative_gan_sampling_torch.sampling.rejection import (
 )
 from collaborative_gan_sampling_torch.training.shaping import ShapingStep
 
-METHODS = ("standard", "reject", "refinement", "collab")
+METHODS = ("standard", "reject", "mhgan", "refinement", "collab")
 
 
 class SampleResult(NamedTuple):
@@ -56,15 +66,16 @@ def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
            data_fn: Callable | None = None) -> SampleResult:
     """Run a sampling strategy end to end on the bundle's device.
     ``data_fn(generator, n) -> (x, labels)`` supplies real batches (needed
-    by collab shaping). The given ``d`` is left as it is; collab returns the
-    shaped copy in ``aux['shaped_d']``."""
+    by collab shaping; used by mhgan for calibration and chain init). The
+    given ``d`` is left as it is; collab returns the shaped copy in
+    ``aux['shaped_d']``."""
     method = method or cfg.method
-    if method == "mhgan":
-        raise NotImplementedError("mhgan sampling is not ported yet")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {METHODS}")
     if method == "collab":
         return _sample_collab(bundle, g, d, cfg, generator, data_fn)
+    if method == "mhgan":
+        return _sample_mhgan(bundle, g, d, cfg, generator, data_fn)
     fn = {"standard": _sample_standard, "reject": _sample_reject,
           "refinement": _sample_refinement}[method]
     return fn(bundle, g, d, cfg, generator)
@@ -131,6 +142,39 @@ def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
         xs.append(x)
         logits.append(lg)
     return _result(xs, logits, accepted, {"logit_max": m})
+
+
+@torch.no_grad()
+def _sample_mhgan(bundle, g, d, cfg, generator, data_fn):
+    mh = make_mh_sampler(bundle, cfg.mh_chain_len)
+    if data_fn is not None:
+        x_real, labels_r = data_fn(generator, cfg.batch_size)
+        lg_real = bundle.discriminate(d, x_real, labels_r, train=False)
+        x_fake, labels_f = _draw(bundle, g, generator, cfg.batch_size)
+        lg_fake = bundle.discriminate(d, x_fake, labels_f, train=False)
+        a, b = fit_platt(lg_real, lg_fake)
+    else:
+        a = torch.ones((), device=bundle.device)
+        b = torch.zeros((), device=bundle.device)
+    xs, logits, n_accs = [], [], []
+    for _ in range(cfg.num_batches):
+        if data_fn is not None:
+            x0, labels = data_fn(generator, cfg.batch_size)
+        else:
+            x0, labels = _draw(bundle, g, generator, cfg.batch_size)
+        x, aux = mh(d, g, generator, x0, labels, a, b)
+        xs.append(x)
+        logits.append(bundle.discriminate(d, x, labels, train=False))
+        n_accs.append(aux["n_accepts"])
+    # Real-data chain init: a chain that never accepted a G proposal still
+    # holds its real initializer; mark it rejected. G-initialized chains
+    # hold generator samples from the start, so all are accepted.
+    accepted = [n > 0 for n in n_accs] if data_fn is not None else None
+    n_acc = torch.cat(n_accs)
+    return _result(xs, logits, accepted, {
+        "mh_accept_rate": n_acc.mean() / cfg.mh_chain_len,
+        "mh_never_accepted": (n_acc == 0).float().mean(),
+        "platt_a": a, "platt_b": b})
 
 
 def _sample_collab(bundle, g, d, cfg, generator, data_fn):

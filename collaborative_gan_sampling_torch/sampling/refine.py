@@ -7,12 +7,15 @@ Counterpart of ``collaborative_gan_sampling_tpu/sampling/refine.py``:
 with optional per-sample gradient clipping, Langevin noise, a per-sample
 stop score and a proximal pull toward x_0. D runs in eval mode, so it is
 per-sample decoupled and the gradient of the summed loss is each sample's
-own. Where ``ops/conv_refine.supports_conv_refine_kernel`` or
-``ops/refine_mlp.supports_mlp_refine_kernel`` holds, the K steps run as the
-fused conv-D or MLP-D kernel (its plain version on the CPU), at any rate;
-elsewhere they run as autograd steps (``_refine_steps``, the counterpart of
-JAX's ``_refine_scan``). Latent-space refinement (``space='z'``) is not
-ported yet.
+own. Where ``ops/conv_refine.supports_conv_refine_kernel`` holds, the K steps
+run as a fused conv-D kernel in the model's compute dtype, as the JAX package
+refines the same preset: ``fused_refine_conv28_bf16`` (bf16 matmul operands,
+f32 sums) for a ``bfloat16`` model, ``fused_refine_conv28`` (f32) otherwise.
+Where ``ops/refine_mlp.supports_mlp_refine_kernel`` holds, they run as the
+fused MLP-D kernel. Each kernel takes its plain version on the CPU and any
+rate. Elsewhere the steps run as autograd steps (``_refine_steps``, the
+counterpart of JAX's ``_refine_scan``). Latent-space refinement
+(``space='z'``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from collaborative_gan_sampling_torch.config import RefineConfig
 from collaborative_gan_sampling_torch.models import GANBundle
 from collaborative_gan_sampling_torch.ops.conv_refine import (
     fused_refine_conv28,
+    fused_refine_conv28_bf16,
     supports_conv_refine_kernel,
 )
 from collaborative_gan_sampling_torch.ops.conv_refine_ref import fold_dcgan_d
@@ -80,14 +84,15 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
     steps, clip_norm = cfg.steps, cfg.clip_norm
     noise, objective = cfg.noise, cfg.objective
     stop_score, proximal = cfg.stop_score, cfg.proximal
+    bf16 = bundle.cfg.compute_dtype == "bfloat16"
 
     def refine(d, x0: torch.Tensor, labels: torch.Tensor | None = None,
                generator: torch.Generator | None = None, rate=None):
         rate = cfg.rate if rate is None else rate
         if supports_conv_refine_kernel(bundle, cfg, labels,
                                        return_trajectory):
-            x_k, logits = fused_refine_conv28(fold_dcgan_d(d), x0, steps,
-                                              rate)
+            fused = fused_refine_conv28_bf16 if bf16 else fused_refine_conv28
+            x_k, logits = fused(fold_dcgan_d(d), x0, steps, rate)
             return x_k, {"logits": logits}
         if supports_mlp_refine_kernel(bundle, cfg, labels,
                                       return_trajectory):
