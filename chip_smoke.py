@@ -37,9 +37,9 @@ Phases, each of which raises (and exits non-zero) on failure:
              the shaped D of phase 4 (n = 4,096 uint8 samples), each with
              its launch counters;
 7. timing  - each kernel and its plain version timed with CUDA events at the
-             main paths' shapes (the MLP kernel also at B = 65,536, with its
-             device time per launch from torch.profiler), beside the least
-             time the card could take.
+             main paths' shapes (the MLP kernel also at B = 65,536), the
+             conv and MLP kernels also by their device time per launch from
+             torch.profiler, beside the least time the card could take.
 
 Phases 4, 5 and 6 also profile one more mnist or toy2d run with
 torch.profiler (device busy share, kernels by device time, ops by host
@@ -127,6 +127,19 @@ def profiled(torch, fn):
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
     return wall, kernels, prof.key_averages()
+
+
+def device_ms_per_launch(torch, fn, kernel: str, calls: int = 10) -> float:
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    from torch.profiler over ``calls`` calls of fn after one warm-up: the
+    mean over the launches the profiler recorded (it may drop one)."""
+    fn()
+    _, kernels, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
+    launches = sum(n for k, (_, n) in kernels.items() if kernel in k)
+    if not 0 < launches <= calls:
+        raise AssertionError(f"profiler saw {launches} launches of "
+                             f"{kernel} in {calls} calls")
+    return sum(ms for k, (ms, _) in kernels.items() if kernel in k) / launches
 
 
 def short_name(kernel: str) -> str:
@@ -838,6 +851,14 @@ def timing(torch, dev):
                                                           RATE)),
         flops=flops, bytes=nbytes - wbytes,
         peak=PEAK_BF16_FLOPS)
+    # Each conv kernel's own device time per launch; the events above also
+    # count the wrapper's casts and packing between back-to-back calls.
+    for name, fn, kernel in (
+            ("conv_refine28", fused_refine_conv28, "refine_kernel"),
+            ("conv_refine28_bf16", fused_refine_conv28_bf16,
+             "refine_bf16_kernel")):
+        out[name]["device"] = device_ms_per_launch(
+            torch, lambda: fn(params, x0, STEPS, RATE), kernel)
 
     logits = torch.randn(BATCH, device=dev, generator=gen)
     m, gamma = logits.max(), torch.tensor(0.0, device=dev)
@@ -872,10 +893,8 @@ def timing(torch, dev):
         x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
         # The kernel's own device time per launch, apart from the
         # wrapper's host work (which bounds back-to-back calls at small B).
-        _, kernels, _ = profiled(torch, lambda: [fused_refine_mlp(
-            params, x0, MLP_STEPS, MLP_RATE) for _ in range(10)])
-        device = sum(ms for k, (ms, _) in kernels.items()
-                     if "refine_kernel" in k) / 10
+        device = device_ms_per_launch(torch, lambda: fused_refine_mlp(
+            params, x0, MLP_STEPS, MLP_RATE), "refine_kernel")
         name = "refine_mlp" if n == BATCH else f"refine_mlp B={n}"
         out[name] = dict(
             ms=time_ms(lambda: fused_refine_mlp(params, x0, MLP_STEPS,

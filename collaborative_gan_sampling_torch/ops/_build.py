@@ -78,16 +78,21 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
     return reports
 
 
+def open_lib(path: Path) -> ctypes.CDLL:
+    """Load one kernel library and declare its error-string entry."""
+    lib = ctypes.CDLL(str(path))
+    lib.cgs_error_string.restype = ctypes.c_char_p
+    lib.cgs_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
     if name not in _LIBS:
         path = lib_path(name)
         if not path.exists():
             build((name,))
-        lib = ctypes.CDLL(str(path))
-        lib.cgs_error_string.restype = ctypes.c_char_p
-        lib.cgs_error_string.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+        _LIBS[name] = open_lib(path)
     return _LIBS[name]
 
 

@@ -9,6 +9,12 @@ Two kernels replace the TPU kernels of
 * ``csrc/conv_refine28_bf16.cu`` (``fused_refine_conv28_bf16``):
   ``fused_refine_conv28_v2`` with ``bf16=True``, bf16 matmul operands with
   f32 sums on the tensor cores; plain version ``refine_conv28_plain_bf16``.
+  Two samples per block; conv1 and its input-VJP on ``wgmma`` with conv1's
+  weights streamed through shared memory by bulk async copies. The wrapper
+  packs the weights once per call (``pack_bf16_refine_weights``): w1 as 50
+  tiles in the shared-memory image that ``wgmma``'s B descriptor reads
+  (``pack_conv1_bf16``), in the order the kernel takes them
+  (``vjp_schedule``).
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a tensor on the card; it never falls back from the card to
@@ -20,8 +26,10 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from collaborative_gan_sampling_torch.ops import _build
 from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
@@ -84,14 +92,15 @@ def _f32_params(params: FoldedConvD, dev) -> list[torch.Tensor]:
 
 
 def _launch(name: str, x0: torch.Tensor, weights: list[torch.Tensor],
-            steps: int, rate) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel ``name`` on x0. ``weights``: w0, b0, conv1's weights
-    in the layout its forward reads and in the layout its VJP reads, b1, wd,
-    bd."""
+            steps: int, rate, lib: ctypes.CDLL | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel ``name`` on x0 with its seven weight arguments (w0,
+    b0, conv1's two weight arguments, b1, wd, bd), from ``lib`` if given
+    (another build of the same source), else from ``_build.load(name)``."""
     x0 = x0.contiguous()
     x_out = torch.empty_like(x0)
     logits = torch.empty(x0.shape[0], device=x0.device, dtype=torch.float32)
-    lib = _build.load(name)
+    lib = lib or _build.load(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
@@ -129,25 +138,94 @@ def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
 fused_refine_conv28.launches = 0
 
 
+# conv1's weights as the bf16 kernel streams them: one 16 KB tile per tap
+# and direction, each the shared-memory image of a K-major wgmma B operand
+# in the 128-byte swizzle. A swizzle atom is 8 rows of 128 bytes (64 bf16 of
+# K); in row n, the 16-byte chunk j of the K atom sits at chunk j ^ (n % 8).
+TILE_ELEMS = 64 * 128
+VJP_CLASSES = ((0, 0), (0, 1), (1, 0), (1, 1))  # (iy % 2, ix % 2) of h1
+
+
+def vjp_schedule() -> list[int]:
+    """The order of conv1's VJP taps (dy * 5 + dx): class by class in
+    ``VJP_CLASSES`` order, each class's taps (those with py + 1 - dy and
+    px + 1 - dx even: 4, 6, 6 and 9 of them) in row-major order; then the
+    5 class starts. The kernel reads this table for its VJP loop, and
+    ``pack_conv1_bf16`` lays the VJP tiles out in the same order."""
+    taps, starts = [], [0]
+    for py, px in VJP_CLASSES:
+        taps += [dy * 5 + dx for dy in range(1 - py, 5, 2)
+                 for dx in range(1 - px, 5, 2)]
+        starts.append(len(taps))
+    return taps + starts
+
+
+def _sw128(n: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Element offset of B[k][n] (k < 64) within one 64-wide K atom of a
+    K-major tile in the 128-byte swizzle: row n holds 64 bf16 of K."""
+    return n * 64 + ((k % 64 // 8) ^ (n % 8)) * 8 + k % 8
+
+
+@functools.cache
+def _conv1_tile_index(device: torch.device = torch.device("cpu")
+                      ) -> torch.Tensor:
+    """index[p] = the flat (tap, ci, co) index of w1 (Flax layout, 25 x 64 x
+    128) that goes to element p of the 50 packed tiles; kept on each device
+    it was asked for."""
+    if device.type != "cpu":
+        return _conv1_tile_index().to(device)
+    index = torch.empty(50 * TILE_ELEMS, dtype=torch.long)
+    ci = torch.arange(64).view(64, 1)
+    co = torch.arange(128).view(1, 128)
+    for tap in range(25):  # forward: B[k = ci][n = co], one 64-wide atom
+        index[tap * TILE_ELEMS + _sw128(co, ci)] = (
+            tap * TILE_ELEMS + ci * 128 + co)
+    for j, tap in enumerate(vjp_schedule()[:25]):
+        # VJP: B[k = co][n = ci], K = 128 in two atoms of 64 rows x 64.
+        dest = (25 + j) * TILE_ELEMS + (co // 64) * 4096 + _sw128(ci, co)
+        index[dest] = tap * TILE_ELEMS + ci * 128 + co
+    return index
+
+
+def pack_conv1_bf16(w1: torch.Tensor) -> torch.Tensor:
+    """w1 (5, 5, 64, 128) -> (50, 8192) bf16: the kernel's 50 tiles, the 25
+    forward taps in order, then the 25 VJP taps in ``vjp_schedule`` order.
+    w1 is rounded to bf16 (to nearest, ties to even) first."""
+    flat = w1.reshape(-1).to(torch.bfloat16)
+    return flat[_conv1_tile_index(flat.device)].view(50, TILE_ELEMS)
+
+
+@functools.cache
+def _schedule_tensor(device: torch.device) -> torch.Tensor:
+    return torch.tensor(vjp_schedule(), dtype=torch.int32, device=device)
+
+
+def pack_bf16_refine_weights(params: FoldedConvD, dev) -> list[torch.Tensor]:
+    """The bf16 kernel's weights on ``dev``, in its argument order: w0 as
+    (32, 64) bf16 (conv0's 25 taps padded to K = 32 with zeros), b0, w1 as
+    ``pack_conv1_bf16`` tiles, the ``vjp_schedule`` table (int32), b1, wd
+    and bd."""
+    b0, b1, wd, bd = _f32_params(params, dev)
+    w0 = F.pad(params.w0.to(dev).reshape(25, 64), (0, 0, 0, 7))
+    if w0.dtype != torch.float32 or params.w1.dtype != torch.float32:
+        raise ValueError("conv refine kernels take float32 weights")
+    return [w0.to(torch.bfloat16).contiguous(), b0,
+            pack_conv1_bf16(params.w1.to(dev)), _schedule_tensor(dev), b1,
+            wd, bd]
+
+
 def fused_refine_conv28_bf16(params: FoldedConvD, x0: torch.Tensor,
                              steps: int, rate
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """K refinement steps under the folded D with bf16 matmul operands and
     float32 sums (the TPU kernel's ``bf16=True`` mode). The same contract as
-    ``fused_refine_conv28``; the wrapper rounds w0 and w1 to bf16 on the
-    device after the fold, in the layouts the kernel reads: w1 as
-    [tap][co][ci] for conv1's forward and [tap][ci][co] for its VJP."""
+    ``fused_refine_conv28``; the weights are rounded to bf16 and packed on
+    the device by ``pack_bf16_refine_weights``."""
     if x0.device.type == "cpu":
         return refine_conv28_plain_bf16(params, x0, steps, rate)
     _check_x0(x0, "bf16 conv refine")
-    dev = x0.device
-    b0, b1, wd, bd = _f32_params(params, dev)
-    bf16 = torch.bfloat16
-    w0 = params.w0.to(dev).reshape(25, 64).to(bf16).contiguous()
-    w1 = params.w1.to(dev).reshape(25, 64, 128).to(bf16)
     out = _launch("conv_refine28_bf16", x0,
-                  [w0, b0, w1.transpose(1, 2).contiguous(), w1.contiguous(),
-                   b1, wd, bd], steps, rate)
+                  pack_bf16_refine_weights(params, x0.device), steps, rate)
     fused_refine_conv28_bf16.launches += 1
     return out
 

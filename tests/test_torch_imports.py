@@ -1,8 +1,9 @@
-"""The port stands alone: no file of ``collaborative_gan_sampling_torch`` and
-not ``chip_smoke.py`` imports JAX, Flax, Optax or the JAX package; its entry
-points refuse to run without a card unless the caller asks for the CPU; and
-``chip_smoke.py`` fails, printing no result, where there is no card or where
-it stands without the rest of the repo."""
+"""The port stands alone: no file of ``collaborative_gan_sampling_torch``, not
+``chip_smoke.py`` and not ``conv_refine_phases.py`` imports JAX, Flax, Optax
+or the JAX package; its entry points refuse to run without a card unless the
+caller asks for the CPU; and ``chip_smoke.py`` fails, printing no result,
+where there is no card or where it stands without the rest of the repo, as
+``conv_refine_phases.py`` does without a card."""
 
 import ast
 import shutil
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "conv_refine_phases.py"]
     assert len(files) > 10
     return files
 
@@ -73,3 +75,11 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(tmp_path, alone)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_conv_refine_phases_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; conv_refine_phases.py would run")
+    proc = _run_smoke(REPO, REPO / "conv_refine_phases.py")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
