@@ -8,11 +8,14 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. device  - requires CUDA; prints the card's name and power limit as
              ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build   - compiles every kernel of ``collaborative_gan_sampling_torch/
-             csrc`` with nvcc (one process per source, all at once);
+             csrc`` with nvcc (one process per source, all at once), prints
+             ptxas's registers and spills, and fails if the f32 conv refine
+             kernel spills;
 3. kernels - holds each kernel against its plain PyTorch version on the card
-             at the main paths' shapes (and a ragged batch), TF32 off; the
-             bf16 conv refine kernel also against the f32 one, from which it
-             must differ by more than its bounds;
+             at the main paths' shapes (and a ragged batch; the f32 conv
+             refine kernel also at B = 1, a block whose second sample is
+             dead), TF32 off; the bf16 conv refine kernel also against the
+             f32 one, from which it must differ by more than its bounds;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
              width (DCGAN 28x28x1, 64/64 filters, z = 100, K = 10, batch 256,
              the preset's bf16 compute) from a random init, with real batches
@@ -20,10 +23,10 @@ Phases, each of which raises (and exits non-zero) on failure:
              procedural images on the card); launch counters are set to 0
              just before and read just after (the bf16 refine kernel 12
              times, the f32 one 0); the same path with the kernels off; a
-             shorter f32 collab run (the f32 refine kernel's launches); one
-             ``sample(..., method="mhgan")`` run (chains of 40); then the f32
-             kernel and autograd refine paths held against each other on a
-             small input;
+             shorter f32 collab run after a warm-up (the f32 refine
+             kernel's launches); one ``sample(..., method="mhgan")`` run
+             (chains of 40); then the f32 kernel and autograd refine paths
+             held against each other on a small input;
 5. toy2d   - ``sample(..., method="collab")`` on the ``toy2d`` preset at full
              width (MLP D and G of 3 x 128 relu layers over 2-D points,
              z = 4, K = 10, rate 0.1, 40 rounds of 256, burn-in 2048, f32)
@@ -38,8 +41,9 @@ Phases, each of which raises (and exits non-zero) on failure:
              its launch counters;
 7. timing  - each kernel and its plain version timed with CUDA events at the
              main paths' shapes (the MLP kernel also at B = 65,536), the
-             conv and MLP kernels also by their device time per launch from
-             torch.profiler, beside the least time the card could take.
+             conv, MLP and accept kernels also by their device time per
+             launch from torch.profiler, beside the least time the card
+             could take.
 
 Phases 4, 5 and 6 also profile one more mnist or toy2d run with
 torch.profiler (device busy share, kernels by device time, ops by host
@@ -190,6 +194,12 @@ def build_phase():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"   {name}: {line.strip()}")
+    # The f32 conv kernel keeps its register tiles in registers.
+    spills = [line for line in reports["conv_refine28"].splitlines()
+              if "spill" in line
+              and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+    if spills:
+        raise AssertionError(f"conv_refine28 spills registers: {spills}")
 
 
 def accept_cases(torch, dev):
@@ -260,7 +270,8 @@ def refine_cases(torch, dev):
     d, gen = refine_d(torch, dev)
     params = fold_dcgan_d(d)
     worst = 0.0
-    for n in (BATCH, RAGGED):
+    # B = 1: a block whose second sample is dead. No sample may go beyond.
+    for n in (BATCH, RAGGED, 1):
         x0 = torch.randn(n, 28, 28, 1, device=dev, generator=gen) * 0.5
         xk, lk = fused_refine_conv28(params, x0, STEPS, RATE)
         torch.cuda.synchronize()
@@ -521,6 +532,29 @@ def check_collab(torch, res, rcfg, label, launches, want):
         raise AssertionError(f"{label} launches {launches}, expected {want}")
 
 
+def f32_collab(torch, dev, data_fn):
+    """A shorter mnist collab run at f32, the precision of the f32 refine
+    kernel: 4 rounds of 256 and 2 burn-in rounds from a random init.
+    Returns its refine config and run(seed). ``collab_walls.py`` times
+    the same run."""
+    from collaborative_gan_sampling_torch.config import get_preset
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+
+    cfg = get_preset("mnist")
+    rcfg = dataclasses.replace(cfg.refine, num_batches=4, burn_in=512)
+    bundle = make_bundle(dataclasses.replace(cfg.model,
+                                             compute_dtype="float32"))
+    g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
+
+    def run(seed):
+        return sample(bundle, g, d, rcfg,
+                      torch.Generator(device=dev).manual_seed(seed),
+                      method="collab", data_fn=data_fn)
+
+    return rcfg, run
+
+
 def main_path(torch, dev):
     """mnist at the preset's bf16: collab (the main path), the same path
     with the kernels off, a shorter f32 collab run, and one MH-GAN run."""
@@ -535,8 +569,8 @@ def main_path(torch, dev):
     bundle = make_bundle(cfg.model)  # on the card, the preset's bf16
     g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
 
-    def run(c, b=bundle, gm=g, dm=d, seed=2, method="collab"):
-        return sample(b, gm, dm, c,
+    def run(c, seed=2, method="collab"):
+        return sample(bundle, g, d, c,
                       torch.Generator(device=dev).manual_seed(seed),
                       method=method, data_fn=data_fn)
 
@@ -568,13 +602,10 @@ def main_path(torch, dev):
     print_profile("mnist collab, one more run",
                   *profiled(torch, lambda: run(rcfg, seed=4)))
 
-    # A shorter collab run at f32, the precision of the f32 refine kernel.
-    cfg32 = dataclasses.replace(cfg.refine, num_batches=4, burn_in=512)
-    bundle32 = make_bundle(dataclasses.replace(cfg.model,
-                                               compute_dtype="float32"))
-    g32, d32 = bundle32.init(torch.Generator(device=dev).manual_seed(0))
-    res32, s32, launches32 = counted(
-        torch, lambda: run(cfg32, bundle32, g32, d32), counters)
+    cfg32, run32 = f32_collab(torch, dev, data_fn)
+    run32(1)  # warm-up: f32 cuDNN plans
+    torch.cuda.synchronize()
+    res32, s32, launches32 = counted(torch, lambda: run32(2), counters)
     burn32 = max(1, cfg32.burn_in // cfg32.batch_size)
     phase(f"mnist collab at f32: {cfg32.num_batches} rounds x "
           f"{cfg32.batch_size} (+{burn32} burn-in rounds), K={cfg32.steps}")
@@ -582,7 +613,7 @@ def main_path(torch, dev):
                  {"conv_refine28_bf16": 0,
                   "conv_refine28": burn32 + cfg32.num_batches,
                   "drs_accept": cfg32.num_batches})
-    print(f"   {s32 * 1e3:.1f} ms wall (no warm-up), "
+    print(f"   {s32 * 1e3:.1f} ms wall, "
           f"{res32.samples.shape[0] / s32:.1f} refined samples/s")
 
     # MH-GAN, the paper's third arm: Platt calibration and chain init from
@@ -871,6 +902,11 @@ def timing(torch, dev):
         plain_ms=time_ms(lambda: A.drs_accept_mask_philox_plain(
             seed, logits, m, gamma), iters=200),
         flops=20 * BATCH, bytes=4 * BATCH + BATCH + 8 + 8)
+    # Back-to-back calls of this short kernel time the host; the profiler
+    # gives the kernel's own device time.
+    out["drs_accept"]["device"] = device_ms_per_launch(
+        torch, lambda: A.drs_accept_mask_philox(seed, logits, m, gamma),
+        "accept_philox_kernel")
     # The parity entry of the accept kernel, u from the caller.
     u = torch.rand(BATCH, device=dev, generator=gen)
     out["drs_accept_from_uniform"] = dict(

@@ -83,44 +83,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifdef CGS_PHASE_CLOCKS
-constexpr int CGS_NPHASE = 8;
-__device__ unsigned long long cgs_phase_sum[CGS_NPHASE];
-__shared__ long long cgs_phase_acc[2][CGS_NPHASE];
-__shared__ long long cgs_phase_last[2];
-#define CGS_PHASE_BEGIN(rec, slot)                                       \
-  if (rec) {                                                             \
-    for (int i_ = 0; i_ < CGS_NPHASE; ++i_) cgs_phase_acc[slot][i_] = 0; \
-    cgs_phase_last[slot] = clock64();                                    \
-  }
-#define CGS_PHASE(rec, slot, i)                          \
-  if (rec) {                                             \
-    const long long now_ = clock64();                    \
-    cgs_phase_acc[slot][i] += now_ - cgs_phase_last[slot]; \
-    cgs_phase_last[slot] = now_;                         \
-  }
-#define CGS_PHASE_END(rec, slot)                                   \
-  if (rec) {                                                       \
-    for (int i_ = 0; i_ < CGS_NPHASE; ++i_)                        \
-      atomicAdd(&cgs_phase_sum[i_],                                \
-                static_cast<unsigned long long>(cgs_phase_acc[slot][i_])); \
-  }
-extern "C" int cgs_phase_clocks(unsigned long long* out, int reset) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, cgs_phase_sum,
-                                         sizeof(cgs_phase_sum));
-  if (err == cudaSuccess && reset) {
-    unsigned long long zero[CGS_NPHASE] = {};
-    err = cudaMemcpyToSymbol(cgs_phase_sum, zero, sizeof(zero));
-  }
-  return static_cast<int>(err);
-}
-#else
-#define CGS_PHASE_BEGIN(rec, slot)
-#define CGS_PHASE(rec, slot, i)
-#define CGS_PHASE_END(rec, slot)
-#endif
+#include "hopper_async.cuh"
 
 namespace {
+
+using namespace cgs;
 
 constexpr int H0 = 28, H1 = 14, H2 = 7, C1 = 64, C2 = 128, TAPS = 25;
 constexpr int NX = H0 * H0;    // 784 pixels
@@ -144,7 +111,6 @@ constexpr int THREADS = SAMPLES * 128 + 32;  // + the producer warp
 constexpr int STAGES = 4;                // ring of conv1 weight tiles
 constexpr int TILE_ELEMS = C1 * C2;      // one tap: 64 x 128 bf16
 constexpr int TILE_BYTES = 2 * TILE_ELEMS;  // 16 KB
-constexpr int VJP_TILE0 = TAPS;          // the VJP's tiles follow the forward's
 constexpr int SCHED = TAPS + 5;          // VJP tap order + 5 class starts
 constexpr float SLOPE = 0.2f;
 
@@ -219,10 +185,6 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // d += A (16x16 bf16, row-major) * B (16x8 bf16, column-major), f32 sums.
 // Fragments (g = lane / 4, t = lane % 4): a0 = A[g][2t..], a1 = A[g+8][2t..],
 // a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..][g], b1 = B[2t+8..][g];
@@ -236,59 +198,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// ---- mbarriers and the bulk copy -----------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete. A wait that makes no
-// progress for ~2^35 cycles (over 15 s) traps, so a fault in the schedule
-// ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1LL << 35)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// One contiguous global -> shared copy that completes `bytes` on `bar`.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // Barrier over one warpgroup (ids 1 and 2; 0 is __syncthreads).
@@ -391,33 +300,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
 
 // ---- the consumer warpgroup's phases ----------------------------------------
 
-// The ring as the consumers see it: tiles are taken in order; tile `it`
-// sits in stage it % STAGES and is the (it / STAGES)-th use of that stage.
-struct Ring {
-  uint32_t tiles;  // shared address of stage 0
-  uint32_t full;   // shared address of full[0]; empty[s] follows full[]
-  int it;          // tiles taken so far
-
-  // Waits for tile `it`; returns its wgmma B descriptor.
-  __device__ __forceinline__ uint64_t wait(bool rec, int wg) {
-    const int s = it % STAGES;
-#ifdef CGS_PHASE_CLOCKS
-    const long long t0 = clock64();
-#endif
-    mbar_wait(full + 8 * s, (it / STAGES) & 1);
-#ifdef CGS_PHASE_CLOCKS
-    if (rec) cgs_phase_acc[wg][6] += clock64() - t0;
-#endif
-    return sw128_desc(tiles + s * TILE_BYTES);
-  }
-
-  // After wgmma_wait_all: this warp is done reading tile `it`.
-  __device__ __forceinline__ void release() {
-    if ((threadIdx.x & 31) == 0)
-      mbar_arrive(full + 8 * (STAGES + it % STAGES));
-    ++it;
-  }
-};
+using WeightRing = Ring<STAGES, TILE_BYTES>;
 
 // h1[cell][c] = bf16(lrelu(b0[c] + sum_tap bf16(x at (cell, tap)) w0[tap][c]))
 // as a GEMM: im2col rows of the 196 cells (13 m-tiles, warp w takes
@@ -535,13 +418,14 @@ __device__ __forceinline__ void issue_fwd(float (&acc)[64],
 // next gather; the other warpgroup's wgmmas fill the tensor cores meanwhile
 // (keeping one group in flight over a second A buffer measured slower).
 __device__ void conv1_fwd(const __nv_bfloat16* h1, const __nv_bfloat16* zero,
-                          Ring& ring, bool rec, int wg, float (&acc)[64]) {
+                          WeightRing& ring, bool rec, int wg,
+                          float (&acc)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   for (int tap = 0; tap < TAPS; ++tap) {
     uint32_t a[4][4];
     gather_fwd(a, h1, zero, tap);
-    issue_fwd(acc, a, ring.wait(rec, wg));
+    issue_fwd(acc, a, sw128_desc(ring.wait(rec, wg)));
     wgmma_wait_all();
     fence_regs(acc);
     ring.release();
@@ -591,7 +475,7 @@ __device__ __forceinline__ void issue_vjp(float (&acc)[32],
 // - 1], in ring order.
 __device__ void conv1_vjp(const __nv_bfloat16* dz2, __nv_bfloat16* h1,
                           const __nv_bfloat16* zero, const int* sched,
-                          Ring& ring, bool rec, int wg) {
+                          WeightRing& ring, bool rec, int wg) {
   const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
   for (int c = 0; c < 4; ++c) {
@@ -603,7 +487,7 @@ __device__ void conv1_vjp(const __nv_bfloat16* dz2, __nv_bfloat16* h1,
     for (int j = j0; j < j1; ++j) {
       uint32_t a[8][4];
       gather_vjp(a, dz2, zero, py, px, sched[j]);
-      issue_vjp(acc, a, ring.wait(rec, wg));
+      issue_vjp(acc, a, sw128_desc(ring.wait(rec, wg)));
       wgmma_wait_all();
       fence_regs(acc);
       ring.release();
@@ -726,13 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t full = smem_u32(smem + OFF_BAR);  // full[s], then empty[s]
 
   const int tid = threadIdx.x, warp = tid >> 5;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(full + 8 * (STAGES + s), 4 * SAMPLES);  // one per warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) ring_init<STAGES>(full, 4 * SAMPLES);  // one per warp
   for (int i = tid; i < K0 * C1; i += THREADS) {
     const __nv_bfloat16 v = w0[i];
     w0s[i] = v;
@@ -757,19 +635,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (warp == 4 * SAMPLES) {
     // Producer: the fixed tile schedule, (2K + 1) passes of 25 tiles.
-    if ((tid & 31) == 0) {
-      const int n = (2 * steps + 1) * TAPS;
-      for (int it = 0; it < n; ++it) {
-        const int s = it % STAGES;
-        mbar_wait(full + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
-        const int pass = it / TAPS, j = it % TAPS;
-        const int tile = (pass & 1) ? VJP_TILE0 + j : j;
-        mbar_expect_tx(full + 8 * s, TILE_BYTES);
-        bulk_copy(tiles + s * TILE_BYTES,
-                  w1s + static_cast<size_t>(tile) * TILE_ELEMS, TILE_BYTES,
-                  full + 8 * s);
-      }
-    }
+    if ((tid & 31) == 0)
+      ring_produce<STAGES, TILE_BYTES, TAPS>(
+          tiles, full, reinterpret_cast<const unsigned char*>(w1s),
+          2 * steps + 1);
     return;
   }
 
@@ -785,7 +654,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* part = reinterpret_cast<float*>(mine + X_BYTES + H1_BYTES);
   const long long b = 2LL * blockIdx.x + wg;
   const float bias_d = __ldg(bd);
-  Ring ring{tiles, full, 0};
+  WeightRing ring{tiles, full, 0};
   CGS_PHASE_BEGIN(rec, wg)
 
   for (int k = 0;; ++k) {

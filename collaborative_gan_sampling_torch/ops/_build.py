@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library, which is loaded with
 ``ctypes``. Libraries go to ``build/kernels/`` beside the package (listed in
-``.gitignore``) under a name that carries a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused. ``build()``
-starts one ``nvcc`` per source, all at once.
+``.gitignore``) under a name that carries a hash of the source, the headers
+of ``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all at
+once.
 
 Every C entry returns the ``cudaError_t`` of its launch; the wrappers raise
 when it is not 0 (``check``).
@@ -43,9 +44,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library goes: its name carries a hash of the
+    source, of every header in ``csrc/`` (a source may include any) and of
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:

@@ -5,7 +5,12 @@ Two kernels replace the TPU kernels of
 
 * ``csrc/conv_refine28.cu`` (``fused_refine_conv28``): ``fused_refine_conv28``
   and ``fused_refine_conv28_v2`` at f32 operands, all f32 on the CUDA cores;
-  plain version ``ops/conv_refine_ref.py::refine_conv28_plain``;
+  plain version ``ops/conv_refine_ref.py::refine_conv28_plain``. Two
+  samples per block; conv1 and its input-VJP as register-tiled f32 GEMMs
+  with conv1's weights streamed through shared memory by bulk async copies.
+  The wrapper packs the weights once per call (``pack_f32_refine_weights``):
+  w1 as 200 tiles of a quarter tap in the order the kernel takes them
+  (``pack_conv1_f32``, ``vjp_schedule``);
 * ``csrc/conv_refine28_bf16.cu`` (``fused_refine_conv28_bf16``):
   ``fused_refine_conv28_v2`` with ``bf16=True``, bf16 matmul operands with
   f32 sums on the tensor cores; plain version ``refine_conv28_plain_bf16``.
@@ -118,19 +123,13 @@ def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
     x0: (B, 28, 28, 1) float32.
 
     Returns (x_K, logits (B,)). ``rate`` is a float or a 0-d tensor, passed
-    to the kernel at run time."""
+    to the kernel at run time; the weights are packed on the device by
+    ``pack_f32_refine_weights``."""
     if x0.device.type == "cpu":
         return refine_conv28_plain(params, x0, steps, rate)
     _check_x0(x0, "conv refine")
-    dev = x0.device
-    w1 = params.w1.to(dev).reshape(25, 64, 128).contiguous()
-    b0, b1, wd, bd = _f32_params(params, dev)
-    w0 = params.w0.to(dev).reshape(25, 64).contiguous()
-    if w0.dtype != torch.float32 or w1.dtype != torch.float32:
-        raise ValueError("conv refine kernels take float32 weights")
     out = _launch("conv_refine28", x0,
-                  [w0, b0, w1, w1.transpose(1, 2).contiguous(), b1, wd, bd],
-                  steps, rate)
+                  pack_f32_refine_weights(params, x0.device), steps, rate)
     fused_refine_conv28.launches += 1
     return out
 
@@ -138,12 +137,8 @@ def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
 fused_refine_conv28.launches = 0
 
 
-# conv1's weights as the bf16 kernel streams them: one 16 KB tile per tap
-# and direction, each the shared-memory image of a K-major wgmma B operand
-# in the 128-byte swizzle. A swizzle atom is 8 rows of 128 bytes (64 bf16 of
-# K); in row n, the 16-byte chunk j of the K atom sits at chunk j ^ (n % 8).
-TILE_ELEMS = 64 * 128
-VJP_CLASSES = ((0, 0), (0, 1), (1, 0), (1, 1))  # (iy % 2, ix % 2) of h1
+# The VJP's parity classes: (iy % 2, ix % 2) of the h1 cells.
+VJP_CLASSES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def vjp_schedule() -> list[int]:
@@ -151,7 +146,8 @@ def vjp_schedule() -> list[int]:
     ``VJP_CLASSES`` order, each class's taps (those with py + 1 - dy and
     px + 1 - dx even: 4, 6, 6 and 9 of them) in row-major order; then the
     5 class starts. The kernel reads this table for its VJP loop, and
-    ``pack_conv1_bf16`` lays the VJP tiles out in the same order."""
+    ``pack_conv1_f32`` and ``pack_conv1_bf16`` lay the VJP tiles out in the
+    same order."""
     taps, starts = [], [0]
     for py, px in VJP_CLASSES:
         taps += [dy * 5 + dx for dy in range(1 - py, 5, 2)
@@ -160,6 +156,50 @@ def vjp_schedule() -> list[int]:
     return taps + starts
 
 
+@functools.cache
+def _schedule_tensor(device: torch.device) -> torch.Tensor:
+    """``vjp_schedule()`` as int32 on ``device``, made once per device (a
+    copy from the host would wait for the work queued before it)."""
+    return torch.tensor(vjp_schedule(), dtype=torch.int32, device=device)
+
+
+# conv1's weights as the f32 kernel streams them: four 8 KB tiles per tap and
+# direction. A forward tile holds 16 input channels x 128 output channels
+# ([ci][co]), a VJP tile 32 output channels x 64 input channels ([co][ci]).
+F32_TILE_ELEMS = 2048
+F32_TAP_TILES = 4
+
+
+def pack_conv1_f32(w1: torch.Tensor) -> torch.Tensor:
+    """w1 (5, 5, 64, 128) f32 -> (200, 2048) f32: the 25 forward taps in
+    order, each as 4 tiles w1[tap][16 q : 16 q + 16][:], then the 25 VJP
+    taps in ``vjp_schedule`` order, each as 4 tiles w1[tap][:][32 q : 32 q +
+    32] transposed to [co][ci]."""
+    w = w1.reshape(25, 64, 128)
+    fwd = w.reshape(25 * F32_TAP_TILES, F32_TILE_ELEMS)
+    taps = _schedule_tensor(w.device)[:25].long()
+    vjp = (w[taps].view(25, 64, F32_TAP_TILES, 32).permute(0, 2, 3, 1)
+           .reshape(25 * F32_TAP_TILES, F32_TILE_ELEMS))
+    return torch.cat([fwd, vjp]).contiguous()
+
+
+def pack_f32_refine_weights(params: FoldedConvD, dev) -> list[torch.Tensor]:
+    """The f32 kernel's weights on ``dev``, in its argument order: w0 as
+    (25, 64), b0, w1 as ``pack_conv1_f32`` tiles, the ``vjp_schedule``
+    table (int32), b1, wd and bd."""
+    b0, b1, wd, bd = _f32_params(params, dev)
+    w0 = params.w0.to(dev).reshape(25, 64).contiguous()
+    if w0.dtype != torch.float32 or params.w1.dtype != torch.float32:
+        raise ValueError("conv refine kernels take float32 weights")
+    return [w0, b0, pack_conv1_f32(params.w1.to(dev)), _schedule_tensor(dev),
+            b1, wd, bd]
+
+
+# conv1's weights as the bf16 kernel streams them: one 16 KB tile per tap
+# and direction, each the shared-memory image of a K-major wgmma B operand
+# in the 128-byte swizzle. A swizzle atom is 8 rows of 128 bytes (64 bf16 of
+# K); in row n, the 16-byte chunk j of the K atom sits at chunk j ^ (n % 8).
+TILE_ELEMS = 64 * 128
 def _sw128(n: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Element offset of B[k][n] (k < 64) within one 64-wide K atom of a
     K-major tile in the 128-byte swizzle: row n holds 64 bf16 of K."""
@@ -193,11 +233,6 @@ def pack_conv1_bf16(w1: torch.Tensor) -> torch.Tensor:
     w1 is rounded to bf16 (to nearest, ties to even) first."""
     flat = w1.reshape(-1).to(torch.bfloat16)
     return flat[_conv1_tile_index(flat.device)].view(50, TILE_ELEMS)
-
-
-@functools.cache
-def _schedule_tensor(device: torch.device) -> torch.Tensor:
-    return torch.tensor(vjp_schedule(), dtype=torch.int32, device=device)
 
 
 def pack_bf16_refine_weights(params: FoldedConvD, dev) -> list[torch.Tensor]:

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Where the bf16 conv refine kernel spends its time, phase by phase.
+"""Where a conv refine kernel spends its time, phase by phase.
 
-    python3 conv_refine_phases.py [--source path/to/conv_refine28_bf16.cu]
+    python3 conv_refine_phases.py [--kernel {bf16,f32}] [--source file.cu]
 
-Builds the kernel source (by default
-``collaborative_gan_sampling_torch/csrc/conv_refine28_bf16.cu``) twice with
-``nvcc``, with the flags of ``ops/_build.py``: once as it is, once with
-``-DCGS_PHASE_CLOCKS``, under which the kernel adds ``clock64()`` cycles per
-phase into device counters that the library's ``cgs_phase_clocks`` entry
-copies out. Runs both through the wrapper's launch helper at the main path's
-shape (B = 256, K = 10, the D of ``chip_smoke.py``) on the weights that
-``pack_bf16_refine_weights`` packs, times the plain build with CUDA events,
+Builds the kernel's source (by default ``collaborative_gan_sampling_torch/
+csrc/conv_refine28_bf16.cu`` for ``--kernel bf16``, ``conv_refine28.cu`` for
+``--kernel f32``) twice with ``nvcc``, with the flags of ``ops/_build.py``:
+once as it is, once with ``-DCGS_PHASE_CLOCKS``, under which the kernel adds
+``clock64()`` cycles per phase into device counters that the library's
+``cgs_phase_clocks`` entry copies out. Runs both through the wrapper's launch
+helper at the main path's shape (B = 256, K = 10, the D of ``chip_smoke.py``)
+on the weights that the kernel's packer (``pack_bf16_refine_weights`` or
+``pack_f32_refine_weights``) packs, times the plain build with CUDA events,
 and prints each phase's share of the counted cycles and that share of the
 kernel's time. ``--source`` takes a variant of the kernel with the same C
-entry, to compare it with the kernel in one run.
+entry and arguments (it may include the headers of ``csrc/``), to compare
+it with the kernel in one run.
 """
 
 from __future__ import annotations
@@ -24,12 +26,27 @@ import subprocess
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNEL = REPO / "collaborative_gan_sampling_torch/csrc/conv_refine28_bf16.cu"
-PHASES = ("conv0 forward", "conv1 forward", "dense head and dz2",
-          "conv1 VJP", "conv0 VJP (GEMM)", "col2im and update",
-          "of which: waiting for conv1 weight tiles")
-# Counters that are a part of the others, left out of the total.
-OVERLAPPING = (6,)
+CSRC = REPO / "collaborative_gan_sampling_torch/csrc"
+# Per kernel: its source, C entry, weight packer (in ops/conv_refine.py) and
+# its phases by counter index. "of which" counters are a part of the others
+# and left out of the total.
+KERNELS = {
+    "bf16": dict(
+        source=CSRC / "conv_refine28_bf16.cu", entry="conv_refine28_bf16",
+        pack="pack_bf16_refine_weights",
+        phases={0: "conv0 forward", 1: "conv1 forward",
+                2: "dense head and dz2", 3: "conv1 VJP",
+                4: "conv0 VJP (GEMM)", 5: "col2im and update",
+                6: "of which: waiting for conv1 weight tiles"}),
+    "f32": dict(
+        source=CSRC / "conv_refine28.cu", entry="conv_refine28",
+        pack="pack_f32_refine_weights",
+        phases={0: "conv0 forward", 1: "conv1 forward",
+                2: "dense head and dz2", 3: "conv1 VJP",
+                4: "conv0 VJP and update",
+                6: "of which: waiting for conv1 weight tiles"}),
+}
+NCOUNTERS = 8
 
 
 def build(source: Path, out_dir: Path) -> dict[str, Path]:
@@ -41,8 +58,8 @@ def build(source: Path, out_dir: Path) -> dict[str, Path]:
     procs, libs = {}, {}
     for kind, extra in (("plain", []), ("counted", ["-DCGS_PHASE_CLOCKS"])):
         libs[kind] = out_dir / f"lib{source.stem}-{kind}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o",
-               str(libs[kind]), str(source)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-I",
+               str(CSRC), "-o", str(libs[kind]), str(source)]
         procs[kind] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     for kind, proc in procs.items():
@@ -55,38 +72,29 @@ def build(source: Path, out_dir: Path) -> dict[str, Path]:
     return libs
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=Path, default=KERNEL)
-    args = ap.parse_args()
+def measure(source: Path, entry: str, x0, weights, phases: dict[int, str],
+            out_dir: Path) -> None:
+    """Build ``source`` plain and counted, run both on x0 and ``weights``
+    (the C entry's seven weight arguments) and print the time and the
+    split."""
     import torch
 
     import chip_smoke as cs
     from collaborative_gan_sampling_torch.ops import _build, conv_refine
-    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
-        fold_dcgan_d,
-    )
 
-    if not torch.cuda.is_available():
-        raise SystemExit("conv_refine_phases: no CUDA device available")
-    libs = build(args.source, REPO / "build" / "phases")
-    dev = torch.device("cuda")
-    d, gen = cs.refine_d(torch, dev)
-    params = fold_dcgan_d(d)
-    x0 = torch.randn(cs.BATCH, 28, 28, 1, device=dev, generator=gen) * 0.5
-    weights = conv_refine.pack_bf16_refine_weights(params, dev)
+    libs = build(source, out_dir)
     results = {}
+    sums = (ctypes.c_ulonglong * NCOUNTERS)()
     for kind, path in libs.items():
         lib = _build.open_lib(path)
 
         def run():
-            return conv_refine._launch("conv_refine28_bf16", x0, weights,
-                                       cs.STEPS, cs.RATE, lib=lib)
+            return conv_refine._launch(entry, x0, weights, cs.STEPS, cs.RATE,
+                                       lib=lib)
 
         ms = cs.time_ms(run)
         results[kind] = (ms, *run())
         if kind == "counted":
-            sums = (ctypes.c_ulonglong * 8)()
             _build.check(lib, lib.cgs_phase_clocks(sums, 1), "counters")
             run()
             torch.cuda.synchronize()
@@ -97,16 +105,41 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"== kernel from {args.source}: {ms:.4f} ms per call at "
+    print(f"== kernel from {source}: {ms:.4f} ms per call at "
           f"B={cs.BATCH}, K={cs.STEPS} (CUDA events; with the counters "
           f"{results['counted'][0]:.4f} ms; same outputs: {same}) on {smi}")
-    total = sum(int(sums[i]) for i in range(len(PHASES))
-                if i not in OVERLAPPING)
-    for i, name in enumerate(PHASES):
+    total = sum(int(sums[i]) for i, name in phases.items()
+                if not name.startswith("of which"))
+    for i, name in phases.items():
         share = int(sums[i]) / total
         print(f"   {name}: {100 * share:.1f}% of the counted cycles, "
               f"{share * ms:.4f} ms of the plain build's time "
               f"({int(sums[i])} cycles over the recording threads)")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="bf16")
+    ap.add_argument("--source", type=Path)
+    args = ap.parse_args()
+    import torch
+
+    import chip_smoke as cs
+    from collaborative_gan_sampling_torch.ops import conv_refine
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        fold_dcgan_d,
+    )
+
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_refine_phases: no CUDA device available")
+    spec = KERNELS[args.kernel]
+    dev = torch.device("cuda")
+    d, gen = cs.refine_d(torch, dev)
+    params = fold_dcgan_d(d)
+    x0 = torch.randn(cs.BATCH, 28, 28, 1, device=dev, generator=gen) * 0.5
+    weights = getattr(conv_refine, spec["pack"])(params, dev)
+    measure(args.source or spec["source"], spec["entry"], x0, weights,
+            spec["phases"], REPO / "build" / "phases")
 
 
 if __name__ == "__main__":

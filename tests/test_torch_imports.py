@@ -1,9 +1,9 @@
 """The port stands alone: no file of ``collaborative_gan_sampling_torch``, not
-``chip_smoke.py`` and not ``conv_refine_phases.py`` imports JAX, Flax, Optax
-or the JAX package; its entry points refuse to run without a card unless the
-caller asks for the CPU; and ``chip_smoke.py`` fails, printing no result,
-where there is no card or where it stands without the rest of the repo, as
-``conv_refine_phases.py`` does without a card."""
+``chip_smoke.py`` and not the measurement tools (``conv_refine_phases.py``,
+``collab_walls.py``) imports JAX, Flax, Optax or the JAX package; its entry
+points refuse to run without a card unless the caller asks for the CPU; and
+``chip_smoke.py`` fails, printing no result, where there is no card or where
+it stands without the rest of the repo, as the tools do without a card."""
 
 import ast
 import shutil
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu")
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "conv_refine_phases.py"]
+                                          REPO / "conv_refine_phases.py",
+                                          REPO / "collab_walls.py"]
     assert len(files) > 10
     return files
 
@@ -81,5 +82,13 @@ def test_conv_refine_phases_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; conv_refine_phases.py would run")
     proc = _run_smoke(REPO, REPO / "conv_refine_phases.py")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+def test_collab_walls_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; collab_walls.py would run")
+    proc = _run_smoke(REPO, REPO / "collab_walls.py")
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
