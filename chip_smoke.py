@@ -14,8 +14,14 @@ Phases, each of which raises (and exits non-zero) on failure:
 3. kernels - holds each kernel against its plain PyTorch version on the card
              at the main paths' shapes (and a ragged batch; the f32 conv
              refine kernel also at B = 1, a block whose second sample is
-             dead), TF32 off; the bf16 conv refine kernel also against the
-             f32 one, from which it must differ by more than its bounds;
+             dead; the MLP kernel at B = 1, 37, 256, 1,001 and 65,536, each
+             on the tile its wrapper picks: 2 up to 264 samples, else 8),
+             TF32 off; the bf16 conv refine kernel
+             also against the f32 one, from which it must differ by more
+             than its bounds; the DRS accept step with and without its
+             percentile on both routes (one launch up to 4,096 logits, the
+             tensor-op percentile above), its gamma_total against
+             torch.quantile's;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
              width (DCGAN 28x28x1, 64/64 filters, z = 100, K = 10, batch 256,
              the preset's bf16 compute) from a random init, with real batches
@@ -40,10 +46,13 @@ Phases, each of which raises (and exits non-zero) on failure:
              the shaped D of phase 4 (n = 4,096 uint8 samples), each with
              its launch counters;
 7. timing  - each kernel and its plain version timed with CUDA events at the
-             main paths' shapes (the MLP kernel also at B = 65,536), the
-             conv, MLP and accept kernels also by their device time per
-             launch from torch.profiler, beside the least time the card
-             could take.
+             main paths' shapes (the MLP kernel also at B = 65,536, and by
+             tile; the accept step with and without its percentile), each
+             kernel also by its device time per launch from
+             torch.profiler, beside the least time the card could take.
+
+Between phases 5 and 6, one DRS step through ``sampling/rejection.py`` is
+profiled: the key's draw and the kernel, at most two launches.
 
 Phases 4, 5 and 6 also profile one more mnist or toy2d run with
 torch.profiler (device busy share, kernels by device time, ops by host
@@ -78,8 +87,18 @@ REFINE_ATOL = 1e-5  # f32 sums in another order over K = 10 steps
 # side of a bf16 rounding midpoint (one operand one bf16 ulp apart).
 BF16_ATOL_X, BF16_ATOL_LOGIT = 1e-5, 1e-4
 ACCEPT_BAND = 1e-6  # masks may differ only where |u - p| < 1e-6
+# Both routes of the accept step: up to STEP_CAP (4,096) in one launch,
+# above it the tensor-op percentile and the elementwise kernel.
+ACCEPT_BATCHES = (1, 37, BATCH, 4096, 1000, 1 << 20)
+# The step's gamma_total against torch.quantile's over torch's shift: the
+# same sort and lerp, but the card's expm1f / logf in the kernel and in
+# torch's elementwise ops may round a shift's last bit apart (~8 float32
+# ulps of the value).
+GAMMA_RTOL = 1e-6
 MLP_STEPS, MLP_RATE = 10, 0.1  # the toy2d preset's refine shape
-MLP_BATCHES = (256, 37, 65536)  # main path, ragged, large
+# One sample, ragged, the main path (tiles of 2), tiles of 8 with a ragged
+# last one, large (tiles of 8).
+MLP_BATCHES = (1, 37, 256, 1001, 65536)
 # relu' may differ between the MLP kernel and its plain version only where a
 # pre-activation lies within float32 rounding of 0; samples whose plain run
 # came within RELU_BAND of 0 at any unit and step are held to REFINE_ATOL
@@ -136,10 +155,15 @@ def profiled(torch, fn):
 def device_ms_per_launch(torch, fn, kernel: str, calls: int = 10) -> float:
     """Device time per launch of the kernels whose name holds ``kernel``,
     from torch.profiler over ``calls`` calls of fn after one warm-up: the
-    mean over the launches the profiler recorded (it may drop one)."""
+    mean over the launches the profiler recorded (it may drop one). Now and
+    then a session records none of them (seen on an H100 for kernels of a
+    few microseconds); such a session is profiled again, up to 3 sessions."""
     fn()
-    _, kernels, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
-    launches = sum(n for k, (_, n) in kernels.items() if kernel in k)
+    for _ in range(3):
+        _, kernels, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
+        launches = sum(n for k, (_, n) in kernels.items() if kernel in k)
+        if launches:
+            break
     if not 0 < launches <= calls:
         raise AssertionError(f"profiler saw {launches} launches of "
                              f"{kernel} in {calls} calls")
@@ -153,10 +177,32 @@ def short_name(kernel: str) -> str:
     return name if len(name) <= 48 else name[:45] + "..."
 
 
+def host_launches(averages) -> int:
+    """Kernel launches from the host in a profile (the runtime API calls)."""
+    return sum(a.count for a in averages
+               if a.key.startswith("cudaLaunchKernel"))
+
+
+def host_waits(averages) -> str:
+    """The runtime calls in a profile at which the host may wait for the
+    card: stream and device synchronizations and copies, each with its
+    count and host time."""
+    rows = [a for a in averages
+            if a.key.startswith(("cudaStreamSynchronize",
+                                 "cudaDeviceSynchronize", "cudaMemcpy"))]
+    return "; ".join(f"{a.key} x{a.count} ({a.self_cpu_time_total / 1e3:.2f}"
+                     " ms)" for a in rows) or "none"
+
+
+def device_kernels(kernels) -> int:
+    """Kernel records on the device in a profile (copies left out)."""
+    return sum(n for k, (_, n) in kernels.items()
+               if not k.startswith(("Memcpy", "Memset")))
+
+
 def print_profile(label, wall, kernels, averages, top=5):
     busy = sum(ms for ms, _ in kernels.values())
-    launches = sum(a.count for a in averages
-                   if a.key.startswith("cudaLaunchKernel"))
+    launches = host_launches(averages)
     print(f"   profile ({label}): {wall * 1e3:.1f} ms wall under the "
           f"profiler, device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}"
           f"% of wall), {launches} kernel launches from the host")
@@ -167,6 +213,7 @@ def print_profile(label, wall, kernels, averages, top=5):
     print("     by host time: " + "; ".join(
         f"{a.key[:40]} {a.self_cpu_time_total / 1e3:.2f} ms x{a.count}"
         for a in by_host))
+    print(f"     host waits: {host_waits(averages)}")
 
 
 def device_phase():
@@ -203,41 +250,93 @@ def build_phase():
 
 
 def accept_cases(torch, dev):
-    """Max |kernel - plain| over both entries, outside the rounding band."""
+    """Max |kernel - plain| over both entries, outside the rounding band,
+    with and without the percentile term, on both routes (the one-launch
+    step up to STEP_CAP, the tensor-op percentile and the elementwise
+    kernel above it); the step's gamma_total against torch.quantile's."""
     from collaborative_gan_sampling_torch.ops import accept as A
 
     gen = torch.Generator(device=dev).manual_seed(7)
     worst = 0.0
-    for n in (BATCH, 1000, 1 << 20):
-        logits = torch.randn(n, device=dev, generator=gen) * 3.0
-        m, gamma = logits.max() - 0.5, torch.tensor(-0.4, device=dev)
-        seed = A.draw_seed(gen, dev)
-        u = A.bits_to_uniform(A.philox_bits_plain(seed, n))
-        f = torch.clamp_max(logits - m, -1e-6)
-        p = torch.sigmoid(f - torch.log(1.0 - torch.exp(f - 1e-6)) - gamma)
-        outside = (u - p).abs() >= ACCEPT_BAND
-        got = A.drs_accept_mask_philox(seed, logits, m, gamma)
-        want = A.drs_accept_mask_philox_plain(seed, logits, m, gamma)
-        err_p = float(((got != want) & outside).float().max())
-        u2 = torch.rand(n, device=dev, generator=gen)
-        outside2 = (u2 - p).abs() >= ACCEPT_BAND
-        got2 = A.drs_accept_mask_from_uniform(u2, logits, m, gamma)
-        want2 = A.drs_accept_mask_from_uniform_plain(u2, logits, m, gamma)
-        err_u = float(((got2 != want2) & outside2).float().max())
-        rate, mean_p = float(got.float().mean()), float(p.mean())
-        sigma = math.sqrt(float((p * (1 - p)).sum())) / n
-        print(f"   drs_accept B={n}: philox {int((got != want).sum())} "
-              f"differing masks ({err_p:.0f} outside the band), "
-              f"from_uniform {int((got2 != want2).sum())} ({err_u:.0f}); "
-              f"accept rate {rate:.6f} vs mean p {mean_p:.6f} "
-              f"(4 sigma {4 * sigma:.2e})")
-        if err_p or err_u:
-            raise AssertionError("DRS accept kernel disagrees with its plain "
-                                 "version")
-        if abs(rate - mean_p) > 4 * sigma + 1.0 / n:
-            raise AssertionError("DRS accept rate is off the probability")
-        worst = max(worst, err_p, err_u)
+    for n in ACCEPT_BATCHES:
+        for pct in (0.0, 80.0):
+            logits = torch.randn(n, device=dev, generator=gen) * 3.0
+            m, gamma = logits.max() - 0.5, -0.4
+            g_got = torch.empty(1, device=dev)
+            g_want = A.gamma_total_plain(logits, m, gamma, pct, 1e-6)
+            f = torch.clamp_max(logits - m, -1e-6)
+            p = torch.sigmoid(f - torch.log(1.0 - torch.exp(f - 1e-6))
+                              - g_want)
+            seed = A.draw_seed(gen, dev)
+            u = A.bits_to_uniform(A.philox_bits_plain(seed, n))
+            outside = (u - p).abs() >= ACCEPT_BAND
+            got = A.drs_accept_mask_philox(seed, logits, m, gamma, 1e-6, pct,
+                                           gamma_out=g_got)
+            want = A.drs_accept_mask_philox_plain(seed, logits, m, gamma,
+                                                  1e-6, pct)
+            err_p = float(((got != want) & outside).float().max())
+            u2 = torch.rand(n, device=dev, generator=gen)
+            outside2 = (u2 - p).abs() >= ACCEPT_BAND
+            g_got2 = torch.empty(1, device=dev)
+            got2 = A.drs_accept_mask_from_uniform(u2, logits, m, gamma, 1e-6,
+                                                  pct, gamma_out=g_got2)
+            want2 = A.drs_accept_mask_from_uniform_plain(u2, logits, m,
+                                                         gamma, 1e-6, pct)
+            err_u = float(((got2 != want2) & outside2).float().max())
+            dg = max(float((g_got - g_want).abs()),
+                     float((g_got2 - g_want).abs()))
+            g_tol = GAMMA_RTOL * max(1.0, abs(float(g_want)))
+            rate, mean_p = float(got.float().mean()), float(p.mean())
+            sigma = math.sqrt(float((p * (1 - p)).sum())) / n
+            route = "one launch" if n <= A.STEP_CAP else "tensor percentile"
+            print(f"   drs_accept B={n} percentile {pct:g} ({route}): philox "
+                  f"{int((got != want).sum())} differing masks ({err_p:.0f} "
+                  f"outside the band), from_uniform "
+                  f"{int((got2 != want2).sum())} ({err_u:.0f}); gamma_total "
+                  f"{float(g_got):.7f}, |d| {dg:.3e} from torch.quantile's "
+                  f"(bound {g_tol:.1e}); accept rate {rate:.6f} vs mean p "
+                  f"{mean_p:.6f} (4 sigma {4 * sigma:.2e})")
+            if err_p or err_u:
+                raise AssertionError("DRS accept kernel disagrees with its "
+                                     "plain version")
+            if not dg <= g_tol:
+                raise AssertionError("DRS step's gamma_total is off "
+                                     "torch.quantile's")
+            if abs(rate - mean_p) > 4 * sigma + 1.0 / n:
+                raise AssertionError("DRS accept rate is off the probability")
+            worst = max(worst, err_p, err_u)
     return worst
+
+
+def accept_call_launches(torch, dev, calls=5):
+    """Launches of one DRS step through ``sampling/rejection.py``'s kernel
+    route at the main paths' B = 256, with and without the percentile, from
+    a profile of ``calls`` calls: {percentile: (host launches, device kernel
+    records, device ms, CUDA-events ms over 200 back-to-back calls, each per
+    call; the profile's ``host_waits``)}. ``collab_walls.py`` counts the
+    same on another tree's package."""
+    from collaborative_gan_sampling_torch.sampling.rejection import (
+        drs_accept_mask,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    logits = torch.randn(BATCH, device=dev, generator=gen)
+    m = logits.max()
+    out = {}
+    for pct in (80.0, 0.0):
+        def call(pct=pct):
+            return drs_accept_mask(gen, logits, m, 0.0, 1e-6, pct,
+                                   use_pallas=True)
+
+        call()
+        torch.cuda.synchronize()
+        _, kernels, averages = profiled(
+            torch, lambda: [call() for _ in range(calls)])
+        out[pct] = (host_launches(averages) / calls,
+                    device_kernels(kernels) / calls,
+                    sum(ms for ms, _ in kernels.values()) / calls,
+                    time_ms(call, iters=200), host_waits(averages))
+    return out
 
 
 def refine_d(torch, dev):
@@ -431,7 +530,10 @@ def mlp_refine_cases(torch, dev):
     """Max |kernel - plain| over x and logits outside the relu band; inside
     it, at most BAND_SHARE of the batch beyond the tolerance."""
     from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        _sms,
         fused_refine_mlp,
+        launch_plan,
+        mlp_layers,
         mlp_params_from_d,
         refine_mlp_plain,
     )
@@ -440,17 +542,21 @@ def mlp_refine_cases(torch, dev):
     params = mlp_params_from_d(d)
     worst = 0.0
     for n in MLP_BATCHES:
+        plan = launch_plan(n, 2, 128, 3, _sms(torch.cuda.current_device()))
         x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
         xp, lp = refine_mlp_plain(params, x0, MLP_STEPS, MLP_RATE)
         far = relu_margin(torch, params, x0, MLP_STEPS, MLP_RATE) >= RELU_BAND
         moved = float((xp - x0).abs().max())
-        xk, lk = fused_refine_mlp(params, x0, MLP_STEPS, MLP_RATE)
+        xk, lk = fused_refine_mlp(mlp_layers(d), x0, MLP_STEPS, MLP_RATE)
         torch.cuda.synchronize()
         dx, dl = (xk - xp).abs().amax(1), (lk - lp).abs()
-        ex, el = float(dx[far].max()), float(dl[far].max())
+        ex = float(dx[far].max()) if bool(far.any()) else 0.0
+        el = float(dl[far].max()) if bool(far.any()) else 0.0
         beyond = int(((dx > REFINE_ATOL) | (dl > REFINE_ATOL)).sum())
         allowed = math.ceil(BAND_SHARE * n)
-        print(f"   refine_mlp B={n} K={MLP_STEPS}: max |dx| {ex:.3e}, "
+        print(f"   refine_mlp B={n} K={MLP_STEPS} (tile {plan.tile}, "
+              f"{plan.grid} blocks, {plan.smem} B of shared memory): max "
+              f"|dx| {ex:.3e}, "
               f"max |dlogit| {el:.3e} outside the relu band; "
               f"{int((~far).sum())} samples in the band, {beyond} beyond "
               f"{REFINE_ATOL} (at most {allowed} allowed; max |dx| "
@@ -555,24 +661,40 @@ def f32_collab(torch, dev, data_fn):
     return rcfg, run
 
 
-def main_path(torch, dev):
-    """mnist at the preset's bf16: collab (the main path), the same path
-    with the kernels off, a shorter f32 collab run, and one MH-GAN run."""
+def bf16_collab(torch, dev, data_fn):
+    """The mnist collab run at the preset's bf16 (the main path): 8 rounds
+    of 256 and 4 burn-in rounds from a random init. Returns its refine
+    config, run(seed, c=that config, method="collab") and (bundle, g, d).
+    ``collab_walls.py --path bf16`` times the same run."""
     from collaborative_gan_sampling_torch.config import get_preset
     from collaborative_gan_sampling_torch.models import make_bundle
     from collaborative_gan_sampling_torch.sampling.collab import sample
 
     cfg = get_preset("mnist")
-    counters = conv_counters()
-    ds, data_fn = image_data_fn(dev, cfg.data)
     rcfg = dataclasses.replace(cfg.refine, num_batches=8, burn_in=1024)
     bundle = make_bundle(cfg.model)  # on the card, the preset's bf16
     g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
 
-    def run(c, seed=2, method="collab"):
+    def run(seed, c=rcfg, method="collab"):
         return sample(bundle, g, d, c,
                       torch.Generator(device=dev).manual_seed(seed),
                       method=method, data_fn=data_fn)
+
+    return rcfg, run, (bundle, g, d)
+
+
+def main_path(torch, dev):
+    """mnist at the preset's bf16: collab (the main path), the same path
+    with the kernels off, a shorter f32 collab run, and one MH-GAN run."""
+    from collaborative_gan_sampling_torch.config import get_preset
+
+    cfg = get_preset("mnist")
+    counters = conv_counters()
+    ds, data_fn = image_data_fn(dev, cfg.data)
+    rcfg, run_seed, (bundle, g, _) = bf16_collab(torch, dev, data_fn)
+
+    def run(c, seed=2, method="collab"):
+        return run_seed(seed, c, method)
 
     run(rcfg, seed=1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
@@ -673,24 +795,20 @@ def small_reference(torch, dev):
                              "path")
 
 
-def toy2d_path(torch, dev):
+def toy2d_collab(torch, dev):
+    """The full toy2d collab preset (40 rounds x 256, burn-in 2048) from a
+    seeded random init, with real batches from its 2D mixture. Returns the
+    preset, the mixture, run(seed, c=the preset's refine config) and
+    (bundle, g). ``collab_walls.py --path toy2d`` times the same run."""
     from collaborative_gan_sampling_torch.config import get_preset
     from collaborative_gan_sampling_torch.data.synthetic2d import (
         make_mixture,
         sample_mixture,
     )
-    from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
     from collaborative_gan_sampling_torch.models import make_bundle
-    from collaborative_gan_sampling_torch.ops.accept import (
-        drs_accept_mask_philox,
-    )
-    from collaborative_gan_sampling_torch.ops.refine_mlp import (
-        fused_refine_mlp,
-    )
     from collaborative_gan_sampling_torch.sampling.collab import sample
 
     cfg = get_preset("toy2d")
-    rcfg = cfg.refine  # the full preset: 40 rounds x 256, burn-in 2048
     bundle = make_bundle(cfg.model)
     g, d = bundle.init(torch.Generator(device=dev).manual_seed(0))
     spec = make_mixture(cfg.data.dataset, cfg.data.ring_radius,
@@ -699,10 +817,25 @@ def toy2d_path(torch, dev):
     def data_fn(generator, n):
         return sample_mixture(generator, spec, n), None
 
-    def run(seed, c=rcfg):
+    def run(seed, c=cfg.refine):
         return sample(bundle, g, d, c,
                       torch.Generator(device=dev).manual_seed(seed),
                       method="collab", data_fn=data_fn)
+
+    return cfg, spec, run, (bundle, g)
+
+
+def toy2d_path(torch, dev):
+    from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
+    from collaborative_gan_sampling_torch.ops.accept import (
+        drs_accept_mask_philox,
+    )
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+
+    cfg, spec, run, (bundle, g) = toy2d_collab(torch, dev)
+    rcfg = cfg.refine  # the full preset: 40 rounds x 256, burn-in 2048
 
     run(1)  # warm-up: allocator
     torch.cuda.synchronize()
@@ -892,48 +1025,67 @@ def timing(torch, dev):
             torch, lambda: fn(params, x0, STEPS, RATE), kernel)
 
     logits = torch.randn(BATCH, device=dev, generator=gen)
-    m, gamma = logits.max(), torch.tensor(0.0, device=dev)
+    m = logits.max()
     seed = A.draw_seed(gen, dev)
-    # Per element: the float math of _accept_math (~20 operations); the
-    # Philox rounds are integer work, which the f32 table does not cover.
-    out["drs_accept"] = dict(
-        ms=time_ms(lambda: A.drs_accept_mask_philox(seed, logits, m,
-                                                           gamma), iters=200),
-        plain_ms=time_ms(lambda: A.drs_accept_mask_philox_plain(
-            seed, logits, m, gamma), iters=200),
-        flops=20 * BATCH, bytes=4 * BATCH + BATCH + 8 + 8)
-    # Back-to-back calls of this short kernel time the host; the profiler
-    # gives the kernel's own device time.
-    out["drs_accept"]["device"] = device_ms_per_launch(
-        torch, lambda: A.drs_accept_mask_philox(seed, logits, m, gamma),
-        "accept_philox_kernel")
-    # The parity entry of the accept kernel, u from the caller.
     u = torch.rand(BATCH, device=dev, generator=gen)
-    out["drs_accept_from_uniform"] = dict(
-        ms=time_ms(lambda: A.drs_accept_mask_from_uniform(u, logits, m,
-                                                          gamma), iters=200),
-        plain_ms=time_ms(lambda: A.drs_accept_mask_from_uniform_plain(
-            u, logits, m, gamma), iters=200),
-        flops=20 * BATCH, bytes=8 * BATCH + BATCH + 8)
+    # The main paths' step (percentile 80) and the step without it. Per
+    # element: the float math of _accept_math (~20 operations) and of the
+    # shift (~10); the Philox rounds and the sort's compare-exchanges are
+    # integer and compare work, which the f32 table does not cover. Bytes:
+    # the logits (and u) read, the mask written, the scalars.
+    for name, pct, entry, plain, arg, extra in (
+            ("drs_accept", 80.0, A.drs_accept_mask_philox,
+             A.drs_accept_mask_philox_plain, seed, 8),
+            ("drs_accept no percentile", 0.0, A.drs_accept_mask_philox,
+             A.drs_accept_mask_philox_plain, seed, 8),
+            ("drs_accept_from_uniform", 80.0, A.drs_accept_mask_from_uniform,
+             A.drs_accept_mask_from_uniform_plain, u, 4 * BATCH)):
+        def call(entry=entry, arg=arg, pct=pct):
+            return entry(arg, logits, m, 0.0, 1e-6, pct)
+
+        out[name] = dict(
+            ms=time_ms(call, iters=200),
+            plain_ms=time_ms(lambda plain=plain, arg=arg, pct=pct: plain(
+                arg, logits, m, 0.0, 1e-6, pct), iters=200),
+            # Back-to-back calls of this short kernel time the host; the
+            # profiler gives the kernel's own device time.
+            device=device_ms_per_launch(torch, call, "drs_step_kernel"),
+            flops=(30 if pct else 20) * BATCH,
+            bytes=4 * BATCH + BATCH + extra + 4 + 4)
 
     from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        TILES,
+        _launch,
+        _sms,
         fused_refine_mlp,
+        launch_plan,
+        mlp_layers,
         mlp_params_from_d,
         refine_flops_per_sample as mlp_flops_per_sample,
         refine_mlp_plain,
     )
 
     d_mlp, gen = mlp_d(torch, dev)
-    params = mlp_params_from_d(d_mlp)
+    layers, params = mlp_layers(d_mlp), mlp_params_from_d(d_mlp)
+    sms = _sms(torch.cuda.current_device())
     for n in (BATCH, 65536):
         x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
         # The kernel's own device time per launch, apart from the
         # wrapper's host work (which bounds back-to-back calls at small B).
         device = device_ms_per_launch(torch, lambda: fused_refine_mlp(
-            params, x0, MLP_STEPS, MLP_RATE), "refine_kernel")
+            layers, x0, MLP_STEPS, MLP_RATE), "refine_kernel")
+        # Both tiles, for the plan's choice.
+        by_tile = {t: device_ms_per_launch(torch, lambda t=t: _launch(
+            layers, x0, MLP_STEPS, MLP_RATE,
+            launch_plan(n, 2, 128, 3, sms, tile=t)), "refine_kernel")
+            for t in TILES}
+        print(f"   refine_mlp B={n}: wrapper's tile "
+              f"{launch_plan(n, 2, 128, 3, sms).tile}; device ms per "
+              "launch by tile " + ", ".join(
+                  f"{t}: {ms:.4f}" for t, ms in by_tile.items()))
         name = "refine_mlp" if n == BATCH else f"refine_mlp B={n}"
         out[name] = dict(
-            ms=time_ms(lambda: fused_refine_mlp(params, x0, MLP_STEPS,
+            ms=time_ms(lambda: fused_refine_mlp(layers, x0, MLP_STEPS,
                                                 MLP_RATE)),
             device=device,
             plain_ms=time_ms(lambda: refine_mlp_plain(params, x0, MLP_STEPS,
@@ -969,6 +1121,15 @@ def main() -> None:
     small_reference(torch, dev)
     toy_launches, toy_samples_per_s, toy_served = toy2d_path(torch, dev)
     toy2d_small_reference(torch, dev)
+    phase(f"launches of one DRS step (sampling/rejection.py, B = {BATCH})")
+    for pct, (host, kern, ms, ev, waits) in accept_call_launches(
+            torch, dev).items():
+        print(f"   percentile {pct:g}: {host:g} host launches, {kern:g} "
+              f"device kernels, {ms:.4f} device ms, {ev:.4f} ms by events "
+              f"per call; host waits in 5 calls: {waits}")
+        if not (host <= 2 and kern <= 2 and max(host, kern) > 0):
+            raise AssertionError("one DRS step takes more than the key's "
+                                 "draw and the kernel")
     # Each path ran with its counters set to 0 just before; the accept
     # kernel serves the mnist runs and toy2d, so its row counts all three.
     launches["refine_mlp"] = toy_launches["refine_mlp"]

@@ -1,7 +1,8 @@
-// What the two conv refine kernels share on Hopper (sm_90a): the phase
-// clocks of -DCGS_PHASE_CLOCKS builds, mbarriers, the 1-D bulk async copy,
-// and a ring of weight tiles in shared memory that one producer thread
-// fills and consumer warps drain, in a fixed order.
+// What the refine kernels share on Hopper (sm_90a): the phase clocks of
+// -DCGS_PHASE_CLOCKS builds, mbarriers and the 1-D bulk async copy (all
+// three), and a ring of weight tiles in shared memory that one producer
+// thread fills and consumer warps drain, in a fixed order (the two conv
+// kernels).
 //
 // The ring: stage s holds tile it (it % STAGES == s, its (it / STAGES)-th
 // use); full[s] completes when the tile's bytes have landed, empty[s] when

@@ -1,4 +1,4 @@
-"""DRS accept step: the CUDA kernel's wrappers and its plain version.
+"""DRS accept step: the CUDA kernel's wrappers and their plain versions.
 
 The kernel (``csrc/drs_accept.cu``) replaces the TPU kernel
 ``collaborative_gan_sampling_tpu/ops/accept_pallas.py``, with its two entries:
@@ -10,22 +10,29 @@ The kernel (``csrc/drs_accept.cu``) replaces the TPU kernel
   ``drs_accept_mask_pallas_from_uniform``) takes u from the caller.
 
 Both compute ``_accept_math``: f = min(F - M, -eps), F_hat = f - log(1 -
-exp(f - eps)) - gamma_total, accept = u < sigmoid(F_hat). gamma_total,
-including any percentile term, is the caller's. The plain versions
-(``*_plain``) reproduce the Philox bits exactly with int64 tensor arithmetic,
-so the card's masks can be held against them element by element. A wrapper
-takes the plain version for tensors on the CPU and launches the kernel for
+exp(f - eps)) - gamma_total, accept = u < sigmoid(F_hat), with gamma_total =
+gamma plus, where ``gamma_percentile`` > 0, that percentile of the batch's
+expm1-form shift (``drs_logit_shift``), composed as ``gamma_total_plain``
+composes it. Up to ``STEP_CAP`` logits the whole step, percentile included,
+is one launch (one block sorts the batch in shared memory); above it the
+percentile is taken with tensor ops and the kernel gets gamma_total. Both
+routes count on the entry's ``launches``. The plain versions (``*_plain``)
+reproduce the Philox bits exactly with int64 tensor arithmetic, so the
+card's masks can be held against them element by element. A wrapper takes
+the plain version for tensors on the CPU and launches the kernel for
 tensors on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from collaborative_gan_sampling_torch.ops import _build
 
+STEP_CAP = 4096  # largest batch of the one-launch step (csrc/drs_accept.cu)
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -70,20 +77,62 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def drs_accept_mask_from_uniform_plain(uniforms, logits, logit_max,
-                                       gamma_total, eps=1e-6):
-    """``_accept_math`` of the TPU kernel, in the log(1 - exp) form."""
+def drs_logit_shift(logits: torch.Tensor, logit_max, gamma: float = 0.0,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """F_hat in the expm1 form; a logit above M is clamped to M - eps."""
+    f = torch.clamp_max(logits - logit_max, -eps)
+    return f - torch.log(-torch.expm1(f - eps)) - gamma
+
+
+def gamma_total(shifted: torch.Tensor, gamma,
+                gamma_percentile: float) -> torch.Tensor:
+    """Static gamma (a float or a device scalar) plus, with
+    ``gamma_percentile`` > 0, the batch percentile of F_hat (linear
+    interpolation, as ``jnp.percentile``). A float gamma is filled on the
+    device: a copy from the host would make the host wait for the card."""
+    if isinstance(gamma, torch.Tensor):
+        g = gamma.to(shifted.device, torch.float32)
+    else:
+        g = torch.full((), gamma, dtype=torch.float32, device=shifted.device)
+    if gamma_percentile > 0:
+        g = g + torch.quantile(shifted, gamma_percentile / 100.0)
+    return g
+
+
+def gamma_total_plain(logits: torch.Tensor, logit_max, gamma,
+                      gamma_percentile: float, eps: float) -> torch.Tensor:
+    """gamma_total of the accept step as a (1,) float32 tensor: the
+    percentile term taken over the expm1-form shift, as
+    ``sampling/rejection.py`` composes it."""
+    shifted = (drs_logit_shift(logits, logit_max, 0.0, eps)
+               if gamma_percentile > 0 else logits)
+    return gamma_total(shifted, gamma, gamma_percentile).reshape(1)
+
+
+def _accept_plain(uniforms, logits, logit_max, gamma_total, eps):
     f = torch.clamp_max(logits.float() - _scalar(logit_max, logits), -eps)
-    f_hat = (f - torch.log(1.0 - torch.exp(f - eps))
-             - _scalar(gamma_total, logits))
+    f_hat = f - torch.log(1.0 - torch.exp(f - eps)) - gamma_total
     return uniforms < torch.sigmoid(f_hat)
 
 
-def drs_accept_mask_philox_plain(seed, logits, logit_max, gamma_total,
-                                 eps=1e-6):
+def drs_accept_mask_from_uniform_plain(uniforms, logits, logit_max, gamma,
+                                       eps=1e-6, gamma_percentile=0.0,
+                                       gamma_out=None):
+    """``_accept_math`` of the TPU kernel, in the log(1 - exp) form, with
+    gamma_total from ``gamma_total_plain`` (written to ``gamma_out``, a (1,)
+    float32 tensor, where given)."""
+    g = gamma_total_plain(logits, logit_max, gamma, gamma_percentile, eps)
+    if gamma_out is not None:
+        gamma_out.copy_(g)
+    return _accept_plain(uniforms, logits, logit_max, g, eps)
+
+
+def drs_accept_mask_philox_plain(seed, logits, logit_max, gamma, eps=1e-6,
+                                 gamma_percentile=0.0, gamma_out=None):
     u = bits_to_uniform(philox_bits_plain(seed, logits.shape[0]))
-    return drs_accept_mask_from_uniform_plain(u, logits, logit_max,
-                                              gamma_total, eps)
+    return drs_accept_mask_from_uniform_plain(u, logits, logit_max, gamma,
+                                              eps, gamma_percentile,
+                                              gamma_out)
 
 
 def draw_seed(generator: torch.Generator | None,
@@ -109,60 +158,102 @@ def _check(logits: torch.Tensor) -> None:
         raise ValueError(f"no DRS accept kernel for device {logits.device}")
 
 
-def _lib():
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
     lib = _build.load("drs_accept")
-    lib.drs_accept_philox.restype = ctypes.c_int
-    lib.drs_accept_philox.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.drs_accept_from_uniform.restype = ctypes.c_int
-    lib.drs_accept_from_uniform.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for entry in (lib.drs_accept_philox, lib.drs_accept_from_uniform):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.drs_step.restype = ctypes.c_int
+    lib.drs_step.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def drs_accept_mask_philox(seed: torch.Tensor, logits: torch.Tensor,
-                           logit_max, gamma_total,
-                           eps: float = 1e-6) -> torch.Tensor:
-    """Boolean accept mask for (B,) logits, u drawn inside the kernel under
-    the Philox key ``seed`` (see ``draw_seed``)."""
-    if logits.device.type == "cpu":
-        return drs_accept_mask_philox_plain(seed, logits, logit_max,
-                                            gamma_total, eps)
-    _check(logits)
+def _accept(logits, logit_max, gamma, eps, gamma_percentile, gamma_out,
+            seed=None, uniforms=None) -> torch.Tensor:
+    """Launches the step (n <= STEP_CAP) or the elementwise kernel after
+    the tensor-op percentile (above), u from ``seed`` or ``uniforms``."""
     logits = logits.contiguous()
-    m, g = _scalar(logit_max, logits), _scalar(gamma_total, logits)
-    seed = seed.to(logits.device, torch.int64).reshape(1).contiguous()
-    out = torch.empty(logits.shape[0], dtype=torch.bool, device=logits.device)
+    n = logits.shape[0]
+    m = _scalar(logit_max, logits)
+    out = torch.empty(n, dtype=torch.bool, device=logits.device)
     lib = _lib()
-    err = lib.drs_accept_philox(_build.ptr(logits), _build.ptr(m),
-                                _build.ptr(g), _build.ptr(seed), float(eps),
-                                _build.ptr(out), logits.shape[0],
-                                _build.stream_of(logits))
-    _build.check(lib, err, "drs_accept_philox")
+    if n <= STEP_CAP:
+        g = (_scalar(gamma, logits) if isinstance(gamma, torch.Tensor)
+             else None)
+        err = lib.drs_step(
+            _build.ptr(logits), _build.ptr(m),
+            None if g is None else _build.ptr(g),
+            0.0 if g is not None else float(gamma), gamma_percentile / 100.0,
+            None if seed is None else _build.ptr(seed),
+            None if uniforms is None else _build.ptr(uniforms), float(eps),
+            _build.ptr(out),
+            None if gamma_out is None else _build.ptr(gamma_out), n,
+            _build.stream_of(logits))
+        _build.check(lib, err, "drs_step")
+        return out
+    g = gamma_total_plain(logits, m, gamma, gamma_percentile, eps)
+    if gamma_out is not None:
+        gamma_out.copy_(g)
+    entry, arg = ((lib.drs_accept_philox, seed) if seed is not None
+                  else (lib.drs_accept_from_uniform, uniforms))
+    err = entry(_build.ptr(logits), _build.ptr(m), _build.ptr(g),
+                _build.ptr(arg), float(eps), _build.ptr(out), n,
+                _build.stream_of(logits))
+    _build.check(lib, err, "drs_accept")
+    return out
+
+
+def _check_gamma_out(gamma_out, logits) -> None:
+    if gamma_out is not None and (
+            gamma_out.shape != (1,) or gamma_out.dtype != torch.float32
+            or gamma_out.device != logits.device):
+        raise ValueError("gamma_out must be a (1,) float32 tensor on "
+                         f"{logits.device}")
+
+
+def drs_accept_mask_philox(seed: torch.Tensor, logits: torch.Tensor,
+                           logit_max, gamma, eps: float = 1e-6,
+                           gamma_percentile: float = 0.0,
+                           gamma_out: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Boolean accept mask for (B,) logits, u drawn inside the kernel under
+    the Philox key ``seed`` (see ``draw_seed``); gamma_total = gamma (a
+    float or a device scalar) plus the ``gamma_percentile`` term, written to
+    ``gamma_out`` where given."""
+    if logits.device.type == "cpu":
+        return drs_accept_mask_philox_plain(seed, logits, logit_max, gamma,
+                                            eps, gamma_percentile, gamma_out)
+    _check(logits)
+    _check_gamma_out(gamma_out, logits)
+    seed = seed.to(logits.device, torch.int64).reshape(1).contiguous()
+    out = _accept(logits, logit_max, gamma, eps, gamma_percentile,
+                  gamma_out, seed=seed)
     drs_accept_mask_philox.launches += 1
     return out
 
 
 def drs_accept_mask_from_uniform(uniforms: torch.Tensor, logits: torch.Tensor,
-                                 logit_max, gamma_total,
-                                 eps: float = 1e-6) -> torch.Tensor:
-    """Accept mask from caller-supplied uniforms (the parity entry)."""
+                                 logit_max, gamma, eps: float = 1e-6,
+                                 gamma_percentile: float = 0.0,
+                                 gamma_out: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """Accept mask from caller-supplied uniforms (the parity entry), with
+    the same gamma_total as ``drs_accept_mask_philox``."""
     if logits.device.type == "cpu":
         return drs_accept_mask_from_uniform_plain(uniforms, logits,
-                                                  logit_max, gamma_total, eps)
+                                                  logit_max, gamma, eps,
+                                                  gamma_percentile, gamma_out)
     _check(logits)
+    _check_gamma_out(gamma_out, logits)
     if uniforms.shape != logits.shape or uniforms.dtype != torch.float32:
         raise ValueError("uniforms must be float32 of the logits' shape")
-    logits, u = logits.contiguous(), uniforms.to(logits.device).contiguous()
-    m, g = _scalar(logit_max, logits), _scalar(gamma_total, logits)
-    out = torch.empty(logits.shape[0], dtype=torch.bool, device=logits.device)
-    lib = _lib()
-    err = lib.drs_accept_from_uniform(_build.ptr(logits), _build.ptr(m),
-                                      _build.ptr(g), _build.ptr(u),
-                                      float(eps), _build.ptr(out),
-                                      logits.shape[0],
-                                      _build.stream_of(logits))
-    _build.check(lib, err, "drs_accept_from_uniform")
+    u = uniforms.to(logits.device).contiguous()
+    out = _accept(logits, logit_max, gamma, eps, gamma_percentile,
+                  gamma_out, uniforms=u)
     drs_accept_mask_from_uniform.launches += 1
     return out
 

@@ -12,8 +12,8 @@ run as a fused conv-D kernel in the model's compute dtype, as the JAX package
 refines the same preset: ``fused_refine_conv28_bf16`` (bf16 matmul operands,
 f32 sums) for a ``bfloat16`` model, ``fused_refine_conv28`` (f32) otherwise.
 Where ``ops/refine_mlp.supports_mlp_refine_kernel`` holds, they run as the
-fused MLP-D kernel. Each kernel takes its plain version on the CPU and any
-rate. Elsewhere the steps run as autograd steps (``_refine_steps``, the
+fused MLP-D kernel, which reads D's own weight tensors. Each kernel takes
+its plain version on the CPU and any rate. Elsewhere the steps run as autograd steps (``_refine_steps``, the
 counterpart of JAX's ``_refine_scan``). Latent-space refinement
 (``space='z'``) is not ported yet.
 """
@@ -35,7 +35,7 @@ from collaborative_gan_sampling_torch.ops.conv_refine import (
 from collaborative_gan_sampling_torch.ops.conv_refine_ref import fold_dcgan_d
 from collaborative_gan_sampling_torch.ops.refine_mlp import (
     fused_refine_mlp,
-    mlp_params_from_d,
+    mlp_layers,
     supports_mlp_refine_kernel,
 )
 
@@ -96,7 +96,7 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
             return x_k, {"logits": logits}
         if supports_mlp_refine_kernel(bundle, cfg, labels,
                                       return_trajectory):
-            x_k, logits = fused_refine_mlp(mlp_params_from_d(d), x0, steps,
+            x_k, logits = fused_refine_mlp(mlp_layers(d), x0, steps,
                                            rate)
             return x_k, {"logits": logits}
         return _refine_steps(d, x0, labels, generator, rate)

@@ -16,24 +16,9 @@ from collaborative_gan_sampling_torch.ops.accept import (
     draw_seed,
     drs_accept_mask_from_uniform,
     drs_accept_mask_philox,
+    drs_logit_shift,
+    gamma_total,
 )
-
-
-def drs_logit_shift(logits: torch.Tensor, logit_max, gamma: float = 0.0,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """F_hat in the expm1 form; a logit above M is clamped to M - eps."""
-    f = torch.clamp_max(logits - logit_max, -eps)
-    return f - torch.log(-torch.expm1(f - eps)) - gamma
-
-
-def gamma_total(shifted: torch.Tensor, gamma: float,
-                gamma_percentile: float) -> torch.Tensor:
-    """Static gamma plus, with ``gamma_percentile`` > 0, the batch
-    percentile of F_hat (linear interpolation, as ``jnp.percentile``)."""
-    g = torch.tensor(gamma, dtype=torch.float32, device=shifted.device)
-    if gamma_percentile > 0:
-        g = g + torch.quantile(shifted, gamma_percentile / 100.0)
-    return g
 
 
 def drs_acceptance_prob(logits: torch.Tensor, logit_max, gamma: float = 0.0,
@@ -50,21 +35,20 @@ def drs_accept_mask(generator: torch.Generator | None, logits: torch.Tensor,
                     uniforms: torch.Tensor | None = None) -> torch.Tensor:
     """Boolean accept mask, same shape as logits.
 
-    With ``use_pallas`` and 1-D logits the shift, sigmoid, draw and compare
-    run as the DRS accept kernel (``ops/accept.py``), u drawn inside it from
-    a key taken from ``generator``; gamma_total is computed here, outside the
-    kernel, with the expm1 shift. Otherwise u is drawn with
-    ``torch.rand``. ``uniforms`` replaces the draw in either case."""
+    With ``use_pallas`` and 1-D logits the whole step runs as the DRS accept
+    kernel (``ops/accept.py``): the percentile of the expm1 shift, the
+    shift, sigmoid, draw and compare in one launch up to ``STEP_CAP``
+    logits (above it the percentile is taken with tensor ops first), u
+    drawn inside it from a key taken from ``generator``. Otherwise u is
+    drawn with ``torch.rand``. ``uniforms`` replaces the draw in either
+    case."""
     if use_pallas and logits.ndim == 1:
-        g = gamma
-        if gamma_percentile > 0:
-            g = gamma_total(drs_logit_shift(logits, logit_max, 0.0, eps),
-                            gamma, gamma_percentile)
         if uniforms is not None:
             return drs_accept_mask_from_uniform(uniforms, logits, logit_max,
-                                                g, eps)
+                                                gamma, eps, gamma_percentile)
         return drs_accept_mask_philox(draw_seed(generator, logits.device),
-                                      logits, logit_max, g, eps)
+                                      logits, logit_max, gamma, eps,
+                                      gamma_percentile)
     p = drs_acceptance_prob(logits, logit_max, gamma, eps, gamma_percentile)
     if uniforms is None:
         uniforms = torch.rand(logits.shape, generator=generator,

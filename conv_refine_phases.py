@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Where a conv refine kernel spends its time, phase by phase.
+"""Where a refine kernel spends its time, phase by phase.
 
-    python3 conv_refine_phases.py [--kernel {bf16,f32}] [--source file.cu]
+    python3 conv_refine_phases.py [--kernel {bf16,f32,mlp}] [--source file.cu]
+                                  [--batch B] [--tile T]
 
 Builds the kernel's source (by default ``collaborative_gan_sampling_torch/
 csrc/conv_refine28_bf16.cu`` for ``--kernel bf16``, ``conv_refine28.cu`` for
-``--kernel f32``) twice with ``nvcc``, with the flags of ``ops/_build.py``:
-once as it is, once with ``-DCGS_PHASE_CLOCKS``, under which the kernel adds
-``clock64()`` cycles per phase into device counters that the library's
-``cgs_phase_clocks`` entry copies out. Runs both through the wrapper's launch
-helper at the main path's shape (B = 256, K = 10, the D of ``chip_smoke.py``)
-on the weights that the kernel's packer (``pack_bf16_refine_weights`` or
-``pack_f32_refine_weights``) packs, times the plain build with CUDA events,
-and prints each phase's share of the counted cycles and that share of the
-kernel's time. ``--source`` takes a variant of the kernel with the same C
-entry and arguments (it may include the headers of ``csrc/``), to compare
-it with the kernel in one run.
+``--kernel f32``, ``refine_mlp.cu`` for ``--kernel mlp``) twice with
+``nvcc``, with the flags of ``ops/_build.py``: once as it is, once with
+``-DCGS_PHASE_CLOCKS``, under which the kernel adds ``clock64()`` cycles per
+phase into device counters that the library's ``cgs_phase_clocks`` entry
+copies out. Runs both through the wrapper's launch helper on the D of
+``chip_smoke.py``: a conv kernel at the main path's shape (B = 256, K = 10)
+on the weights that its packer (``pack_bf16_refine_weights`` or
+``pack_f32_refine_weights``) packs; the MLP kernel at ``--batch`` samples
+(default 256, K = 10, the toy2d rate) on ``--tile`` (2 or 8; default: the
+wrapper's ``launch_plan``), on D's own weights. Times the plain build with
+CUDA events, and prints each phase's share of the counted cycles and that
+share of the kernel's time; for the MLP kernel also the counted cycles per
+tile. ``--source`` takes a
+variant of the kernel with the same C entry and arguments (it may include
+the headers of ``csrc/``), to compare it with the kernel in one run.
 """
 
 from __future__ import annotations
@@ -45,6 +50,12 @@ KERNELS = {
                 2: "dense head and dz2", 3: "conv1 VJP",
                 4: "conv0 VJP and update",
                 6: "of which: waiting for conv1 weight tiles"}),
+    "mlp": dict(
+        source=CSRC / "refine_mlp.cu",
+        phases={0: "layer 0 forward", 1: "hidden layers' forwards",
+                2: "head and top gradient", 3: "hidden layers' input-VJPs",
+                4: "x update", 5: "copies issued, a tile's x in and out",
+                6: "waiting for the weights to land"}),
 }
 NCOUNTERS = 8
 
@@ -72,15 +83,15 @@ def build(source: Path, out_dir: Path) -> dict[str, Path]:
     return libs
 
 
-def measure(source: Path, entry: str, x0, weights, phases: dict[int, str],
-            out_dir: Path) -> None:
-    """Build ``source`` plain and counted, run both on x0 and ``weights``
-    (the C entry's seven weight arguments) and print the time and the
-    split."""
+def measure(source: Path, launch, phases: dict[int, str], out_dir: Path,
+            label: str, tiles: int | None = None) -> None:
+    """Build ``source`` plain and counted, run ``launch(lib) -> (x, logits)``
+    on both and print the time and the split; with ``tiles``, also the
+    counted cycles per tile."""
     import torch
 
     import chip_smoke as cs
-    from collaborative_gan_sampling_torch.ops import _build, conv_refine
+    from collaborative_gan_sampling_torch.ops import _build
 
     libs = build(source, out_dir)
     results = {}
@@ -89,8 +100,7 @@ def measure(source: Path, entry: str, x0, weights, phases: dict[int, str],
         lib = _build.open_lib(path)
 
         def run():
-            return conv_refine._launch(entry, x0, weights, cs.STEPS, cs.RATE,
-                                       lib=lib)
+            return launch(lib)
 
         ms = cs.time_ms(run)
         results[kind] = (ms, *run())
@@ -105,9 +115,9 @@ def measure(source: Path, entry: str, x0, weights, phases: dict[int, str],
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"== kernel from {source}: {ms:.4f} ms per call at "
-          f"B={cs.BATCH}, K={cs.STEPS} (CUDA events; with the counters "
-          f"{results['counted'][0]:.4f} ms; same outputs: {same}) on {smi}")
+    print(f"== kernel from {source}: {ms:.4f} ms per call at {label} (CUDA "
+          f"events; with the counters {results['counted'][0]:.4f} ms; same "
+          f"outputs: {same}) on {smi}")
     total = sum(int(sums[i]) for i, name in phases.items()
                 if not name.startswith("of which"))
     for i, name in phases.items():
@@ -115,13 +125,12 @@ def measure(source: Path, entry: str, x0, weights, phases: dict[int, str],
         print(f"   {name}: {100 * share:.1f}% of the counted cycles, "
               f"{share * ms:.4f} ms of the plain build's time "
               f"({int(sums[i])} cycles over the recording threads)")
+    if tiles:
+        print(f"   {total / tiles:.0f} counted cycles per tile")
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS), default="bf16")
-    ap.add_argument("--source", type=Path)
-    args = ap.parse_args()
+def conv_launch(spec):
+    """The conv kernel's launch at the main path's shape."""
     import torch
 
     import chip_smoke as cs
@@ -130,16 +139,58 @@ def main() -> None:
         fold_dcgan_d,
     )
 
-    if not torch.cuda.is_available():
-        raise SystemExit("conv_refine_phases: no CUDA device available")
-    spec = KERNELS[args.kernel]
     dev = torch.device("cuda")
     d, gen = cs.refine_d(torch, dev)
     params = fold_dcgan_d(d)
     x0 = torch.randn(cs.BATCH, 28, 28, 1, device=dev, generator=gen) * 0.5
     weights = getattr(conv_refine, spec["pack"])(params, dev)
-    measure(args.source or spec["source"], spec["entry"], x0, weights,
-            spec["phases"], REPO / "build" / "phases")
+
+    def launch(lib):
+        return conv_refine._launch(spec["entry"], x0, weights, cs.STEPS,
+                                   cs.RATE, lib=lib)
+
+    return launch, f"B={cs.BATCH}, K={cs.STEPS}", None
+
+
+def mlp_launch(batch: int, tile: int | None):
+    """The MLP kernel's launch on the toy2d D at ``batch`` samples."""
+    import torch
+
+    import chip_smoke as cs
+    from collaborative_gan_sampling_torch.ops import refine_mlp as R
+
+    dev = torch.device("cuda")
+    d, gen = cs.mlp_d(torch, dev)
+    layers = R.mlp_layers(d)
+    x0 = torch.randn(batch, 2, device=dev, generator=gen) * 2.0
+    hidden, relu = R.check_layers(layers, x0)
+    plan = R.launch_plan(batch, 2, hidden, relu,
+                         R._sms(torch.cuda.current_device()), tile=tile)
+
+    def launch(lib):
+        return R._launch(layers, x0, cs.MLP_STEPS, cs.MLP_RATE, plan,
+                         lib=R.declare(lib))
+
+    return (launch, f"B={batch}, K={cs.MLP_STEPS}, tile {plan.tile}, "
+            f"{plan.grid} blocks", -(-batch // plan.tile))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="bf16")
+    ap.add_argument("--source", type=Path)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--tile", type=int)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_refine_phases: no CUDA device available")
+    spec = KERNELS[args.kernel]
+    launch, label, tiles = (mlp_launch(args.batch, args.tile)
+                            if args.kernel == "mlp" else conv_launch(spec))
+    measure(args.source or spec["source"], launch, spec["phases"],
+            REPO / "build" / "phases", label, tiles)
 
 
 if __name__ == "__main__":

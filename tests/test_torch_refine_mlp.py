@@ -1,5 +1,5 @@
 """Parity of the port's MLP-D refinement (``ops/refine_mlp.py``: plain
-version, parameter order and packing, gate, CPU dispatch) with the JAX
+version, parameter order and forms, gate, CPU dispatch) with the JAX
 package's fused MLP kernel (``fused_refine_mlp``, run in interpret mode on
 the CPU) and its scan oracle.
 
@@ -20,17 +20,12 @@ from collaborative_gan_sampling_torch.config import (
 )
 from collaborative_gan_sampling_torch.models import make_bundle as t_make_bundle
 from collaborative_gan_sampling_torch.ops.refine_mlp import (
-    SMEM_LIMIT,
-    TILE,
     d_forward_flops,
-    fits_kernel,
     fused_refine_mlp,
+    mlp_layers,
     mlp_params_from_d,
-    pack_mlp_params,
-    packed_size,
     refine_flops_per_sample,
     refine_mlp_plain,
-    smem_bytes,
     supports_mlp_refine_kernel,
 )
 from collaborative_gan_sampling_torch.sampling import refine as t_refine
@@ -100,8 +95,8 @@ def test_ragged_batch(batch):
     x0 = _x0(batch, seed=3, scale=1.0)
     x_pal, lg_pal = jax_fused_refine_mlp(d_vars, jnp.asarray(x0), 3, 0.1,
                                          tile=32, interpret=True)
-    x_got, lg_got = fused_refine_mlp(mlp_params_from_d(d),
-                                     torch.from_numpy(x0), 3, 0.1)
+    x_got, lg_got = fused_refine_mlp(mlp_layers(d), torch.from_numpy(x0),
+                                     3, 0.1)
     assert x_got.shape == (batch, 2) and lg_got.shape == (batch,)
     _close(x_got, x_pal)
     _close(lg_got, lg_pal)
@@ -127,39 +122,6 @@ def test_param_extraction_order_and_shapes():
     assert [tuple(b.shape) for _, b in params] == [(64,), (64,), (1,)]
 
 
-def test_packed_layout():
-    """W0, b0, each further hidden kernel with rows padded to h + 1 and its
-    bias, then the head: the offsets that csrc/refine_mlp.cu reads."""
-    _, _, _, d = _pair(TOY2D, seed=7)
-    params = mlp_params_from_d(d)
-    flat = pack_mlp_params(params)
-    h = 128
-    assert flat.numel() == packed_size(2, h, 3) == 33_796
-    assert flat.numel() % 4 == 0
-    torch.testing.assert_close(flat[:2 * h].view(2, h), params[0][0],
-                               rtol=0, atol=0)
-    hid = 2 * h + h
-    w1 = flat[hid:hid + h * (h + 1)].view(h, h + 1)
-    torch.testing.assert_close(w1[:, :h], params[1][0], rtol=0, atol=0)
-    assert not w1[:, h].any()
-    per = h * (h + 1) + h
-    wout = hid + 2 * per
-    torch.testing.assert_close(flat[wout:wout + h], params[-1][0][:, 0],
-                               rtol=0, atol=0)
-    assert flat[wout + h] == params[-1][1][0]
-
-
-def test_shared_memory_budget():
-    # toy2d: 33,796 packed floats; x (2, T), acts (3, 128, T), logits (T),
-    # at T = TILE = 4.
-    assert TILE == 4
-    assert smem_bytes(2, 128, 3) == 4 * (33_796 + 8 + 3 * 128 * 4 + 4)
-    assert smem_bytes(2, 128, 3) == 141_376 <= SMEM_LIMIT
-    assert fits_kernel(2, 128, 3)
-    assert not fits_kernel(2, 256, 3)  # 2 x 256^2 floats alone are 512 KB
-    assert not fits_kernel(2, 128, 0)
-
-
 def test_flop_count_matches_hand_count():
     # 2 (d h + (L-1) h^2 + h) = 2 (256 + 32,768 + 128) per D forward.
     assert d_forward_flops(2, 128, 3) == 66_304
@@ -168,11 +130,10 @@ def test_flop_count_matches_hand_count():
 
 def test_wrapper_on_cpu_takes_plain_version():
     _, _, _, d = _pair(TOY2D, seed=8)
-    params = mlp_params_from_d(d)
     x0 = torch.from_numpy(_x0(5, seed=9))
     before = fused_refine_mlp.launches
-    x_got, lg_got = fused_refine_mlp(params, x0, 2, torch.tensor(0.03))
-    x_want, lg_want = refine_mlp_plain(params, x0, 2, 0.03)
+    x_got, lg_got = fused_refine_mlp(mlp_layers(d), x0, 2, torch.tensor(0.03))
+    x_want, lg_want = refine_mlp_plain(mlp_params_from_d(d), x0, 2, 0.03)
     assert fused_refine_mlp.launches == before
     torch.testing.assert_close(x_got, x_want, rtol=0, atol=0)
     torch.testing.assert_close(lg_got, lg_want, rtol=0, atol=0)
@@ -236,7 +197,6 @@ def test_autograd_path_when_gated_off():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     _, _, _, d = _pair(TOY2D, seed=16)
-    params = mlp_params_from_d(d)
     x0 = torch.zeros(4, 2)
     with pytest.raises(ValueError, match="no MLP refine kernel"):
-        fused_refine_mlp(params, x0.to("meta"), 1, 0.1)
+        fused_refine_mlp(mlp_layers(d), x0.to("meta"), 1, 0.1)
