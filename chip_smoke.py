@@ -41,6 +41,21 @@ Phases, each of which raises (and exits non-zero) on failure:
              before and read just after; %HQ, KL and modes covered printed;
              then the kernel and autograd refine paths held against each
              other on a small input;
+5t. train  - the port's own training, through ``Experiment``: the mnist
+             preset uncut (bf16, 500 iterations), the toy2d preset uncut
+             (4,000 iterations) and a short f32 mnist run with FusedProp,
+             EMA-G and R1 (40 iterations), each from scratch in a workdir
+             ``runs/smoke_<name>`` (gitignored): every logged loss finite,
+             the checkpoint restored by ``load_state`` equal to the trained
+             state bit for bit, one warm chunk timed and one profiled (host
+             launches per iteration), then collab on the restored state with
+             the launch counters (the bf16 conv and accept kernels on mnist,
+             the MLP and accept kernels on toy2d, the f32 conv kernel on the
+             f32 run); %HQ, KL and modes covered of standard and collab
+             sampling on toy2d; the MLP kernel against its plain version on
+             the trained D; and the bf16 conv kernel against its plain
+             version on the trained and on the shaped D, with the samples
+             beyond its bounds counted and named, not gated;
 6. serving - ``ServingSampler(..., "collab").generate``: toy2d under the
              shaped D of phase 5 (n = 100,000 float32 samples), mnist under
              the shaped D of phase 4 (n = 4,096 uint8 samples), each with
@@ -68,11 +83,13 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12  # float32 on the CUDA cores
@@ -425,6 +442,60 @@ def name_jump(torch, params, x0):
     return k, one, float(kink_margin(torch, params, x_prev)[0])
 
 
+def bf16_case(torch, params, x0, detail=None):
+    """The bf16 kernel against its plain version and the f32 kernel on x0,
+    printed, each sample beyond the bounds named (the first ``detail`` of
+    them with the step where its error jumped, all of them if None).
+    Returns (the samples beyond the bounds, how many may be, max |dx| and
+    |dlogit| over all, max |dx| and |dlogit| from the f32 kernel)."""
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28,
+        fused_refine_conv28_bf16,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        refine_conv28_plain_bf16,
+    )
+
+    n = x0.shape[0]
+    xk, lk = fused_refine_conv28_bf16(params, x0, STEPS, RATE)
+    x32, l32 = fused_refine_conv28(params, x0, STEPS, RATE)
+    torch.cuda.synchronize()
+    with torch.backends.cudnn.flags(enabled=False):
+        xp, lp = refine_conv28_plain_bf16(params, x0, STEPS, RATE)
+    dx, dl = (xk - xp).abs().flatten(1).amax(1), (lk - lp).abs()
+    beyond = ((dx > BF16_ATOL_X) | (dl > BF16_ATOL_LOGIT)).nonzero()
+    allowed = math.ceil(BAND_SHARE * n)
+    inside = torch.ones_like(dx, dtype=torch.bool)
+    inside[beyond[:, 0]] = False
+    ex = float(dx[inside].max()) if bool(inside.any()) else 0.0
+    el = float(dl[inside].max()) if bool(inside.any()) else 0.0
+    gx = float((xk - x32).abs().max())
+    gl = float((lk - l32).abs().max())
+    moved = float((xp - x0).abs().max())
+    print(f"   conv_refine28_bf16 B={n} K={STEPS}: max |dx| {ex:.3e}, "
+          f"max |dlogit| {el:.3e} over the samples within the bounds "
+          f"({BF16_ATOL_X:.0e}, {BF16_ATOL_LOGIT:.0e}); {len(beyond)} "
+          f"beyond them (at most {allowed} allowed; max |dx| "
+          f"{float(dx.max()):.3e}, max |dlogit| {float(dl.max()):.3e} "
+          f"over all); from the f32 kernel: max |dx| {gx:.3e}, max "
+          f"|dlogit| {gl:.3e}; refinement moved x by {moved:.3e}")
+    far = int(((dx > 10 * BF16_ATOL_X) | (dl > 10 * BF16_ATOL_LOGIT)).sum())
+    if len(beyond):
+        print(f"     beyond 10 times the bounds: {far}; median |dx| "
+              f"{float(dx.median()):.3e} and |dlogit| "
+              f"{float(dl.median()):.3e} over the batch")
+    with torch.backends.cudnn.flags(enabled=False):
+        for i in beyond[:, 0].tolist()[:detail]:
+            k, one, margin = name_jump(torch, params, x0[i:i + 1])
+            print(f"     sample {i}: |dx| {float(dx[i]):.3e}, |dlogit| "
+                  f"{float(dl[i]):.3e}; its error jumped at step {k}: "
+                  f"that one step from the kernel's x_{k - 1} differs "
+                  f"by {one:.3e}, and the plain forward there has a "
+                  f"pre-activation {margin:.3e} from its kink")
+    return (beyond[:, 0].tolist(), allowed, float(dx.max()),
+            float(dl.max()), gx, gl)
+
+
 def bf16_refine_cases(torch, dev):
     """The bf16 kernel against its plain version, and its distance from the
     f32 kernel on the same input, which must exceed the bounds: the operands
@@ -436,13 +507,8 @@ def bf16_refine_cases(torch, dev):
     kernel's relu band, at most BAND_SHARE of the batch may exceed the
     bounds, and each such sample is named with the step whose error jumped
     and the one-step error from the same x there."""
-    from collaborative_gan_sampling_torch.ops.conv_refine import (
-        fused_refine_conv28,
-        fused_refine_conv28_bf16,
-    )
     from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
         fold_dcgan_d,
-        refine_conv28_plain_bf16,
     )
 
     d, gen = refine_d(torch, dev)
@@ -450,35 +516,7 @@ def bf16_refine_cases(torch, dev):
     worst = 0.0
     for n in (BATCH, RAGGED):
         x0 = torch.randn(n, 28, 28, 1, device=dev, generator=gen) * 0.5
-        xk, lk = fused_refine_conv28_bf16(params, x0, STEPS, RATE)
-        x32, l32 = fused_refine_conv28(params, x0, STEPS, RATE)
-        torch.cuda.synchronize()
-        with torch.backends.cudnn.flags(enabled=False):
-            xp, lp = refine_conv28_plain_bf16(params, x0, STEPS, RATE)
-        dx, dl = (xk - xp).abs().flatten(1).amax(1), (lk - lp).abs()
-        beyond = ((dx > BF16_ATOL_X) | (dl > BF16_ATOL_LOGIT)).nonzero()
-        allowed = math.ceil(BAND_SHARE * n)
-        inside = torch.ones_like(dx, dtype=torch.bool)
-        inside[beyond[:, 0]] = False
-        ex, el = float(dx[inside].max()), float(dl[inside].max())
-        gx = float((xk - x32).abs().max())
-        gl = float((lk - l32).abs().max())
-        moved = float((xp - x0).abs().max())
-        print(f"   conv_refine28_bf16 B={n} K={STEPS}: max |dx| {ex:.3e}, "
-              f"max |dlogit| {el:.3e} over the samples within the bounds "
-              f"({BF16_ATOL_X:.0e}, {BF16_ATOL_LOGIT:.0e}); {len(beyond)} "
-              f"beyond them (at most {allowed} allowed; max |dx| "
-              f"{float(dx.max()):.3e}, max |dlogit| {float(dl.max()):.3e} "
-              f"over all); from the f32 kernel: max |dx| {gx:.3e}, max "
-              f"|dlogit| {gl:.3e}; refinement moved x by {moved:.3e}")
-        with torch.backends.cudnn.flags(enabled=False):
-            for i in beyond[:, 0].tolist():
-                k, one, margin = name_jump(torch, params, x0[i:i + 1])
-                print(f"     sample {i}: |dx| {float(dx[i]):.3e}, |dlogit| "
-                      f"{float(dl[i]):.3e}; its error jumped at step {k}: "
-                      f"that one step from the kernel's x_{k - 1} differs "
-                      f"by {one:.3e}, and the plain forward there has a "
-                      f"pre-activation {margin:.3e} from its kink")
+        beyond, allowed, wx, wl, gx, gl = bf16_case(torch, params, x0)
         if len(beyond) > allowed:
             raise AssertionError(f"{len(beyond)} samples of {n} differ beyond "
                                  f"the bf16 kernel's bounds; at most "
@@ -487,7 +525,7 @@ def bf16_refine_cases(torch, dev):
             raise AssertionError("bf16 conv refine kernel is within its "
                                  "bounds of the f32 kernel: its operands "
                                  "are not rounded")
-        worst = max(worst, float(dx.max()), float(dl.max()))
+        worst = max(worst, wx, wl)
     return worst
 
 
@@ -526,9 +564,10 @@ def relu_margin(torch, params, x0, steps, rate):
     return margin
 
 
-def mlp_refine_cases(torch, dev):
+def mlp_refine_cases(torch, dev, d=None, batches=MLP_BATCHES):
     """Max |kernel - plain| over x and logits outside the relu band; inside
-    it, at most BAND_SHARE of the batch beyond the tolerance."""
+    it, at most BAND_SHARE of the batch beyond the tolerance. On ``d`` (a
+    toy2d D) when given, else on random weights."""
     from collaborative_gan_sampling_torch.ops.refine_mlp import (
         _sms,
         fused_refine_mlp,
@@ -538,10 +577,13 @@ def mlp_refine_cases(torch, dev):
         refine_mlp_plain,
     )
 
-    d, gen = mlp_d(torch, dev)
+    if d is None:
+        d, gen = mlp_d(torch, dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(4)
     params = mlp_params_from_d(d)
     worst = 0.0
-    for n in MLP_BATCHES:
+    for n in batches:
         plan = launch_plan(n, 2, 128, 3, _sms(torch.cuda.current_device()))
         x0 = torch.randn(n, 2, device=dev, generator=gen) * 2.0
         xp, lp = refine_mlp_plain(params, x0, MLP_STEPS, MLP_RATE)
@@ -928,6 +970,253 @@ def toy2d_small_reference(torch, dev):
                              "autograd path")
 
 
+# The workdirs of phase 5t, runs/smoke_<name> (their checkpoints and logs
+# are gitignored). The checkpoint dirs (an mnist checkpoint holds about
+# 13 MB) are removed at the end of the phase; the logs stay.
+TRAIN_DIR = os.path.join(REPO, "runs")
+LOSS_KEYS = ("d_loss", "g_loss", "d_real", "d_fake", "r1")
+
+
+def train_experiment(preset, name, overrides, dev):
+    """An Experiment on ``preset`` with ``overrides``, in a fresh workdir
+    TRAIN_DIR/smoke_<name>."""
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+
+    workdir = os.path.join(TRAIN_DIR, f"smoke_{name}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = apply_overrides(get_preset(preset).replace(workdir=workdir),
+                          overrides)
+    return Experiment(cfg, echo_metrics=False, device=dev)
+
+
+def mnist_train(dev):
+    """The mnist preset uncut (DCGAN 28x28x1, 64/64 filters, z = 100, batch
+    256, g_steps 2, lr 2e-4, bf16 compute, f32 params) from its seeded init
+    on the procedural image stream: 500 iterations in 25 chunks of 20, a log
+    line per chunk, checkpoints at 200, 400 and 500."""
+    return train_experiment("mnist", "mnist", [
+        "train.niters=500", "train.log_every=20", "train.ckpt_every=200"],
+        dev)
+
+
+def toy2d_train(dev):
+    """The toy2d preset uncut (MLP G and D of 3 x 128, batch 256, lr 1e-3,
+    f32, ring8_imbalanced): 4,000 iterations in chunks of 50, a log line
+    every 200, checkpoints at 1,000 .. 4,000."""
+    return train_experiment("toy2d", "toy2d", [], dev)
+
+
+def options_train(dev):
+    """The mnist preset at f32 (so that collab on it reaches the f32 conv
+    kernel) with FusedProp, EMA-G 0.999 and R1 1.0: 40 iterations, 2
+    chunks of 20."""
+    return train_experiment("mnist", "options", [
+        "model.compute_dtype=float32", "train.niters=40",
+        "train.log_every=20", "train.fused_prop=true",
+        "train.g_ema_decay=0.999", "train.r1_gamma=1.0"], dev)
+
+
+def state_differences(torch, a, b):
+    """The tensors in which two TrainStates differ, bit for bit: G's and
+    D's params and buffers, both Adam states and the EMA params."""
+    out = [] if a.step == b.step else ["step"]
+    for side in ("g", "d"):
+        ma, mb = getattr(a, side), getattr(b, side)
+        oa, ob = getattr(a, f"{side}_opt"), getattr(b, f"{side}_opt")
+        pairs = list(zip(ma.named_parameters(), mb.parameters()))
+        for (name, x), y in pairs + list(zip(ma.named_buffers(),
+                                             mb.buffers())):
+            if not torch.equal(x, y):
+                out.append(f"{side}.{name}")
+        for (name, x), y in pairs:
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(oa.state[x][k].cpu(), ob.state[y][k].cpu()):
+                    out.append(f"{side}_opt.{name}.{k}")
+    if (a.g_ema is None) != (b.g_ema is None):
+        out.append("g_ema")
+    elif a.g_ema is not None:
+        for (name, x), y in zip(a.g_ema.named_parameters(),
+                                b.g_ema.parameters()):
+            if not torch.equal(x, y):
+                out.append(f"g_ema.{name}")
+    return out
+
+
+def train_run(torch, exp, label):
+    """``exp.train()`` from scratch, timed to a synchronize; its log
+    printed, every loss finite; ``load_state`` held to the trained state
+    bit for bit. Returns (trained state, restored state, iterations/s over
+    the whole call, the log's rows)."""
+    cfg = exp.cfg.train
+    t0 = time.perf_counter()
+    state = exp.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(exp.workdir, "train.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    phase(f"train: {label}, {cfg.niters} iterations in chunks of "
+          f"{cfg.steps_per_call} (batch {cfg.batch_size}, d_steps "
+          f"{cfg.d_steps}, g_steps {cfg.g_steps}, fused_prop "
+          f"{cfg.fused_prop}, r1_gamma {cfg.r1_gamma}, g_ema_decay "
+          f"{cfg.g_ema_decay}), {exp.cfg.model.compute_dtype}")
+    for r in rows:
+        print(f"   step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in LOSS_KEYS if k in r)
+            + f"; {r['iters_per_s']} it/s since the line before")
+    bad = [r["step"] for r in rows
+           if not all(math.isfinite(r[k]) for k in LOSS_KEYS if k in r)]
+    if bad or not rows:
+        raise AssertionError(f"{label}: non-finite losses at steps {bad}")
+    print(f"   {cfg.niters / seconds:.1f} iterations/s over the whole call "
+          f"({seconds:.2f} s: first-call set-up, log reads and checkpoint "
+          "writes included)")
+    ckpts = sorted(os.listdir(exp.ckpt_dir))
+    restored = exp.load_state()
+    diffs = state_differences(torch, state, restored)
+    same = "equal to the trained state bit for bit"
+    print(f"   checkpoints {ckpts}; restored step {restored.step}: "
+          f"{diffs or same}")
+    if diffs or restored.step != cfg.niters:
+        raise AssertionError(f"{label}: the restored state differs in "
+                             f"{diffs}")
+    return state, restored, cfg.niters / seconds, rows
+
+
+def chunk_profile(torch, exp, state, label):
+    """One warm chunk timed (iterations/s), then one profiled: host launches
+    per iteration and the device's busy share. Trains ``state`` further."""
+    from collaborative_gan_sampling_torch.training.gan import (
+        make_train_chunk,
+    )
+
+    spc = exp.cfg.train.steps_per_call
+    chunk = make_train_chunk(exp.bundle, exp.cfg.train, exp.data_fn,
+                             exp.seed)
+    chunk(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(state)
+    torch.cuda.synchronize()
+    warm = spc / (time.perf_counter() - t0)
+    wall, kernels, averages = profiled(torch, lambda: chunk(state))
+    busy = sum(ms for ms, _ in kernels.values()) / (wall * 1e3)
+    per_iter = host_launches(averages) / spc
+    print(f"   one warm chunk of {spc}: {warm:.1f} iterations/s; profiled: "
+          f"{per_iter:.1f} host launches per iteration, device busy "
+          f"{100 * busy:.1f}% of the wall")
+    print_profile(f"{label}, one train chunk", wall, kernels, averages)
+    return warm, per_iter, busy
+
+
+def sample_counted(torch, exp, state, method, counters, **kw):
+    """``exp.sample`` with the counters set to 0 just before; the result
+    checked finite of the expected shape, the accept rate in (0, 1]."""
+    res, seconds, launches = counted(
+        torch, lambda: exp.sample(state, method=method, **kw), counters)
+    rcfg = kw.get("refine_cfg") or exp.cfg.refine
+    want = (rcfg.num_batches * rcfg.batch_size, *exp.bundle.data_shape)
+    finite = bool(torch.isfinite(res.samples).all()
+                  and torch.isfinite(res.logits).all())
+    print(f"   {method}: samples {tuple(res.samples.shape)} finite={finite}, "
+          f"accept rate {res.accept_rate:.4f}, {seconds * 1e3:.1f} ms wall; "
+          f"launches {launches}")
+    if tuple(res.samples.shape) != want or not finite:
+        raise AssertionError(f"{method} samples on trained weights are not "
+                             "finite of the expected shape")
+    if not 0.0 < res.accept_rate <= 1.0:
+        raise AssertionError(f"{method} accept rate {res.accept_rate}")
+    return res, launches
+
+
+def need_launches(launches, names, label):
+    for k in names:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on {label}")
+
+
+def train_phase(torch, dev):
+    """Train -> checkpoint -> restore -> collab on each preset, on weights
+    the port trained. Returns the kernels' launches on those collab runs
+    and the phase's readings."""
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        fold_dcgan_d,
+    )
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+    from collaborative_gan_sampling_torch.training.gan import sampling_g
+
+    counters = {"refine_mlp": fused_refine_mlp, **conv_counters()}
+    total = dict.fromkeys(counters, 0)
+    out = {}
+
+    exp = mnist_train(dev)
+    state, restored, ips, _ = train_run(torch, exp, "mnist")
+    out["mnist"] = (ips, *chunk_profile(torch, exp, state, "mnist"))
+    res, launches = sample_counted(torch, exp, restored, "collab", counters)
+    need_launches(launches, ("conv_refine28_bf16", "drs_accept"),
+                  "mnist collab after training")
+    total = {k: total[k] + launches[k] for k in total}
+
+    phase(f"the bf16 conv kernel on trained weights (B = {BATCH}, x0 = the "
+          "trained G's samples): measured, not gated")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    with torch.no_grad():
+        x0 = exp.bundle.generate(sampling_g(restored),
+                                 exp.bundle.sample_z(gen, BATCH))
+    for label, d in (("trained D", restored.d),
+                     ("shaped D", res.aux["shaped_d"])):
+        beyond, allowed, *_ = bf16_case(torch, fold_dcgan_d(d), x0,
+                                        detail=8)
+        print(f"   {label}: {len(beyond)} of {BATCH} samples beyond the "
+              f"bounds (the random-weight check allows {allowed}): "
+              f"{beyond}")
+        out[f"flips {label}"] = beyond
+
+    exp = toy2d_train(dev)
+    state, restored, ips, _ = train_run(torch, exp, "toy2d")
+    out["toy2d"] = (ips, *chunk_profile(torch, exp, state, "toy2d"))
+    std, _ = sample_counted(torch, exp, restored, "standard", counters)
+    res, launches = sample_counted(torch, exp, restored, "collab", counters)
+    need_launches(launches, ("refine_mlp", "drs_accept"),
+                  "toy2d collab after training")
+    total = {k: total[k] + launches[k] for k in total}
+    for method, r in (("standard", std), ("collab", res)):
+        m = exp.evaluate(r)
+        print(f"   metrics_2d ({method}, accepted samples, trained "
+              f"weights): %HQ {m['pct_hq']:.4f}, KL {m['kl']:.4f}, modes "
+              f"covered {m['modes_covered']:.0f} of "
+              f"{exp.spec.means.shape[0]}, accept rate "
+              f"{m['accept_rate']:.4f}")
+        out[f"toy2d {method}"] = m
+    mlp_refine_cases(torch, dev, d=restored.d, batches=(BATCH,))
+
+    exp = options_train(dev)
+    state, restored, ips, rows = train_run(torch, exp, "mnist options")
+    if not all("r1" in r for r in rows):
+        raise AssertionError("the R1 run logged no r1")
+    same = [torch.equal(p, q) for p, q in zip(restored.g_ema.parameters(),
+                                              restored.g.parameters())]
+    print(f"   EMA params equal to the live ones in {sum(same)} of "
+          f"{len(same)} tensors")
+    if all(same) or sampling_g(restored) is not restored.g_ema:
+        raise AssertionError("the EMA generator is not tracked")
+    rcfg = dataclasses.replace(exp.cfg.refine, num_batches=1, burn_in=256)
+    _, launches = sample_counted(torch, exp, restored, "collab", counters,
+                                 refine_cfg=rcfg)
+    need_launches(launches, ("conv_refine28", "drs_accept"),
+                  "f32 mnist collab after training")
+    total = {k: total[k] + launches[k] for k in total}
+
+    for name in ("mnist", "toy2d", "options"):
+        shutil.rmtree(os.path.join(TRAIN_DIR, f"smoke_{name}", "ckpts"))
+    return total, out
+
+
 def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
@@ -1121,6 +1410,7 @@ def main() -> None:
     small_reference(torch, dev)
     toy_launches, toy_samples_per_s, toy_served = toy2d_path(torch, dev)
     toy2d_small_reference(torch, dev)
+    train_launches, trained = train_phase(torch, dev)
     phase(f"launches of one DRS step (sampling/rejection.py, B = {BATCH})")
     for pct, (host, kern, ms, ev, waits) in accept_call_launches(
             torch, dev).items():
@@ -1134,6 +1424,9 @@ def main() -> None:
     # kernel serves the mnist runs and toy2d, so its row counts all three.
     launches["refine_mlp"] = toy_launches["refine_mlp"]
     launches["drs_accept"] += toy_launches["drs_accept"]
+    # The collab runs on trained weights, each counted from 0 likewise.
+    for k, n in train_launches.items():
+        launches[k] += n
     serving_phase(torch, dev, toy_served, mnist_served)
 
     phase("timing at the main paths' shapes (CUDA events)")
@@ -1177,6 +1470,12 @@ def main() -> None:
           "samples/s")
     print(f"   collab main path (toy2d): {toy_samples_per_s:.1f} refined "
           "samples/s")
+    for name in ("mnist", "toy2d"):
+        ips, warm, per_iter, busy = trained[name]
+        print(f"   train ({name}): {ips:.1f} iterations/s over the whole "
+              f"call, {warm:.1f} in a warm chunk, {per_iter:.1f} host "
+              f"launches per iteration, device busy {100 * busy:.1f}%")
+    print(f"   whole script: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

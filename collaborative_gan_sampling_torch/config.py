@@ -141,8 +141,92 @@ class Config:
     eval: EvalConfig = field(default_factory=EvalConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
 
+    # -- serialization ------------------------------------------------------
+
+    def to_dict(self) -> dict[str, Any]:
+        """``dataclasses.asdict``: the same dict as the JAX package's
+        ``Config.to_dict`` for the same config, so the checkpoint sidecar's
+        content hash agrees across the two packages."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Config":
+        """Inverse of to_dict, e.g. from a checkpoint dir's ``config.json``.
+        Leaf fields unknown to this schema are dropped and absent ones take
+        their defaults; the sidecar's hash check stays the strict gate."""
+        leaves = {"model": ModelConfig, "data": DataConfig,
+                  "train": TrainConfig, "refine": RefineConfig,
+                  "eval": EvalConfig, "mesh": MeshConfig}
+        kw: dict[str, Any] = {}
+        top = {f.name for f in dataclasses.fields(cls)}
+        for k, v in d.items():
+            if k in leaves:
+                known = {f.name for f in dataclasses.fields(leaves[k])}
+                kw[k] = leaves[k](**{a: b for a, b in v.items()
+                                     if a in known})
+            elif k in top:
+                kw[k] = v
+        return cls(**kw)
+
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    # -- validation ---------------------------------------------------------
+
+    def validate(self) -> "Config":
+        """Raise ValueError on configurations that are known to be broken,
+        before any device work starts. Returns self for chaining."""
+        problems: list[str] = []
+
+        def need(cond: bool, msg: str) -> None:
+            if not cond:
+                problems.append(msg)
+
+        r, t, e, m = self.refine, self.train, self.eval, self.model
+        need(m.z_dim > 0, f"model.z_dim must be > 0, got {m.z_dim}")
+        need(m.num_classes >= 0,
+             f"model.num_classes must be >= 0, got {m.num_classes}")
+        need(t.batch_size > 0,
+             f"train.batch_size must be > 0, got {t.batch_size}")
+        need(t.niters >= 0, f"train.niters must be >= 0, got {t.niters}")
+        need(t.steps_per_call > 0,
+             f"train.steps_per_call must be > 0, got {t.steps_per_call}")
+        need(0.0 <= t.g_ema_decay < 1.0,
+             f"train.g_ema_decay must be in [0, 1), got {t.g_ema_decay}")
+        need(t.r1_gamma >= 0.0,
+             f"train.r1_gamma must be >= 0, got {t.r1_gamma}")
+        need(r.steps >= 0, f"refine.steps must be >= 0, got {r.steps}")
+        need(r.rate >= 0.0, f"refine.rate must be >= 0, got {r.rate}")
+        need(r.batch_size > 0,
+             f"refine.batch_size must be > 0, got {r.batch_size}")
+        need(r.num_batches > 0,
+             f"refine.num_batches must be > 0, got {r.num_batches}")
+        need(r.burn_in > 0, f"refine.burn_in must be > 0, got {r.burn_in}")
+        need(0.0 <= r.stop_score < 1.0,
+             f"refine.stop_score must be in [0, 1) (a sigmoid threshold; "
+             f"1.0 would never trigger), got {r.stop_score}")
+        need(r.proximal >= 0.0,
+             f"refine.proximal must be >= 0, got {r.proximal}")
+        need(r.rate * r.proximal < 2.0,
+             f"refine.rate * refine.proximal = {r.rate * r.proximal:g} "
+             ">= 2: the explicit-Euler proximal anchor oscillates "
+             "divergently (see RefineConfig.proximal) — lower one of them")
+        need(0.0 <= r.gamma_percentile <= 100.0,
+             f"refine.gamma_percentile must be in [0, 100], got "
+             f"{r.gamma_percentile}")
+        need(r.shape_every >= 0,
+             f"refine.shape_every must be >= 0, got {r.shape_every}")
+        need(r.shaping_steps >= 0,
+             f"refine.shaping_steps must be >= 0, got {r.shaping_steps}")
+        need(r.shaping_r1_gamma >= 0.0,
+             f"refine.shaping_r1_gamma must be >= 0, got {r.shaping_r1_gamma}")
+        need(e.fid_num_samples > 0 and e.fid_batch_size > 0,
+             "eval.fid_num_samples and eval.fid_batch_size must be > 0, "
+             f"got {e.fid_num_samples}/{e.fid_batch_size}")
+        need(e.prd_k > 0, f"eval.prd_k must be > 0, got {e.prd_k}")
+        if problems:
+            raise ValueError("invalid config:\n  - " + "\n  - ".join(problems))
+        return self
 
 
 def _toy2d() -> Config:
@@ -241,3 +325,43 @@ def get_preset(name: str) -> Config:
     if name not in _PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {list_presets()}")
     return _PRESETS[name]()
+
+
+# ---------------------------------------------------------------------------
+# CLI overrides: train.batch_size=128 refine.steps=50 model.kind=dcgan
+# ---------------------------------------------------------------------------
+
+
+def _cast(value: str, typ: Any) -> Any:
+    if typ is bool:
+        if value.lower() in ("1", "true", "yes", "on"):
+            return True
+        if value.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"cannot parse bool from {value!r}")
+    return typ(value)
+
+
+def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
+    """Apply ``a.b=c`` style dotted overrides to a frozen config tree."""
+    for ov in overrides:
+        ov = ov.lstrip("-")
+        if "=" not in ov:
+            raise ValueError(f"override {ov!r} is not of the form key=value")
+        dotted, value = ov.split("=", 1)
+        cfg = _set_path(cfg, dotted.split("."), value)
+    return cfg
+
+
+def _set_path(node: Any, path: list[str], value: str) -> Any:
+    name = path[0]
+    fields = {f.name: f for f in dataclasses.fields(node)}
+    if name not in fields:
+        raise KeyError(
+            f"{type(node).__name__} has no field {name!r}; "
+            f"have {sorted(fields)}")
+    if len(path) == 1:
+        typ = type(getattr(node, name))
+        return dataclasses.replace(node, **{name: _cast(value, typ)})
+    child = _set_path(getattr(node, name), path[1:], value)
+    return dataclasses.replace(node, **{name: child})

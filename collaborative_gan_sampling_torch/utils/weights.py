@@ -13,6 +13,11 @@ ConvTranspose (SAME)   kernel (kh, kw, in, out)  weight (in, out, kh, kw),
                                                  spatially flipped
 BatchNorm              scale, bias; mean, var    weight, bias; running_*
 =====================  ========================  ===========================
+
+Adam's state goes the same way: optax's ``ScaleByAdamState(count, mu,
+nu)`` is torch Adam's per-parameter ``step``, ``exp_avg`` and
+``exp_avg_sq``; mu and nu take the parameters' layouts above, and optax's
+one int32 count is every parameter's step.
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ def _to_torch(layer: nn.Module, p: dict) -> dict[str, np.ndarray]:
     raise TypeError(f"no Flax counterpart for {type(layer).__name__}")
 
 
-def _to_flax(layer: nn.Module) -> dict[str, np.ndarray]:
-    w = layer.weight.detach().cpu().numpy()
-    b = layer.bias.detach().cpu().numpy()
+def _to_flax(layer: nn.Module, w: np.ndarray, b: np.ndarray
+             ) -> dict[str, np.ndarray]:
+    """Flax arrays of one layer's (weight, bias)-shaped pair: its params,
+    or Adam's moments of them."""
     if isinstance(layer, Dense):
         return {"kernel": w.T.copy(), "bias": b}
     if isinstance(layer, SameConv2d):
@@ -62,16 +68,42 @@ def _to_flax(layer: nn.Module) -> dict[str, np.ndarray]:
     raise TypeError(f"no Flax counterpart for {type(layer).__name__}")
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy: ``.numpy()`` of a host tensor would share its storage."""
+    return t.detach().cpu().numpy().copy()
+
+
+def params_to_flax(module: nn.Module, of=lambda p: p) -> dict[str, dict]:
+    """The Flax params tree of ``module``, or of ``of(p)`` for each of its
+    parameters p (e.g. an optimizer's moment of p), as numpy arrays."""
+    return {name: _to_flax(layer, _numpy(of(layer.weight)),
+                           _numpy(of(layer.bias)))
+            for name, layer in module.named_children()}
+
+
+def _tensors_from_flax(module: nn.Module, params: Any):
+    """(parameter, numpy array in its layout) for every parameter of
+    ``module`` from a Flax params-shaped tree."""
+    for name, layer in module.named_children():
+        for attr, value in _to_torch(layer, params[name]).items():
+            yield getattr(layer, attr), np.array(value)
+
+
+def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
+    """Copy a Flax params tree into ``module``'s parameters in place."""
+    with torch.no_grad():
+        for t, value in _tensors_from_flax(module, params):
+            t.copy_(torch.tensor(value, dtype=t.dtype))
+    return module
+
+
 def load_jax_variables(module: nn.Module, variables: Any) -> nn.Module:
     """Copy JAX variables (nested dicts of arrays) into ``module`` in place;
     every parameter and BatchNorm buffer of the module must be given."""
-    params = variables["params"]
+    load_jax_params(module, variables["params"])
     stats = variables.get("batch_stats", {})
     with torch.no_grad():
         for name, layer in module.named_children():
-            for attr, value in _to_torch(layer, params[name]).items():
-                t = getattr(layer, attr)
-                t.copy_(torch.tensor(np.array(value), dtype=t.dtype))
             if isinstance(layer, FlaxBatchNorm):
                 layer.running_mean.copy_(torch.tensor(
                     np.array(stats[name]["mean"]), dtype=torch.float32))
@@ -82,14 +114,50 @@ def load_jax_variables(module: nn.Module, variables: Any) -> nn.Module:
 
 def to_jax_variables(module: nn.Module) -> dict[str, dict]:
     """The module's state as JAX variables (nested dicts of numpy arrays)."""
-    params, stats = {}, {}
-    for name, layer in module.named_children():
-        params[name] = _to_flax(layer)
-        if isinstance(layer, FlaxBatchNorm):
-            stats[name] = {
-                "mean": layer.running_mean.detach().cpu().numpy(),
-                "var": layer.running_var.detach().cpu().numpy()}
-    out = {"params": params}
+    stats = {name: {"mean": _numpy(layer.running_mean),
+                    "var": _numpy(layer.running_var)}
+             for name, layer in module.named_children()
+             if isinstance(layer, FlaxBatchNorm)}
+    out = {"params": params_to_flax(module)}
     if stats:
         out["batch_stats"] = stats
     return out
+
+
+def adam_to_optax(opt: torch.optim.Adam, module: nn.Module) -> dict:
+    """optax.adam's state for ``module``'s parameters, as Flax writes it:
+    ``{'0': {'count', 'mu', 'nu'}, '1': {}}`` (the chain's
+    ``ScaleByAdamState`` and ``EmptyState``). A parameter that has not been
+    stepped yet has zero moments, as optax's init gives."""
+    steps = {int(opt.state[p]["step"]) if p in opt.state else 0
+             for p in module.parameters()}
+    if len(steps) != 1:
+        raise ValueError(f"parameters at different Adam steps {steps}: "
+                         "optax keeps one count")
+
+    def moment(key):
+        return lambda p: (opt.state[p][key] if p in opt.state
+                          else torch.zeros_like(p))
+
+    return {"0": {"count": np.asarray(steps.pop(), np.int32),
+                  "mu": params_to_flax(module, moment("exp_avg")),
+                  "nu": params_to_flax(module, moment("exp_avg_sq"))},
+            "1": {}}
+
+
+def load_optax_adam(opt: torch.optim.Adam, module: nn.Module,
+                    state: Any) -> torch.optim.Adam:
+    """Set ``opt``'s state for ``module``'s parameters from optax.adam's
+    (``adam_to_optax``'s layout, as a checkpoint holds it)."""
+    adam = state["0"]
+    count = float(np.asarray(adam["count"]))
+    mu = dict(_tensors_from_flax(module, adam["mu"]))
+    nu = dict(_tensors_from_flax(module, adam["nu"]))
+    for p in module.parameters():
+        opt.state[p] = {
+            # torch keeps the step as a float32 tensor on the host.
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.tensor(mu[p], dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(nu[p], dtype=p.dtype,
+                                       device=p.device)}
+    return opt

@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``collaborative_gan_sampling_torch``, not
 ``chip_smoke.py`` and not the measurement tools (``conv_refine_phases.py``,
-``collab_walls.py``) imports JAX, Flax, Optax or the JAX package; its entry
+``collab_walls.py``) imports JAX, Flax, Optax, the JAX package or
+``msgpack`` (absent where the port runs on the card: the port reads and
+writes Flax checkpoints with its own ``utils/msgpack.py``); its entry
 points refuse to run without a card unless the caller asks for the CPU; and
 ``chip_smoke.py`` fails, printing no result, where there is no card or where
 it stands without the rest of the repo, as the tools do without a card."""
@@ -16,7 +18,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "collaborative_gan_sampling_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu",
+             "msgpack")
 
 
 def _port_files():
