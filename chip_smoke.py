@@ -53,9 +53,24 @@ Phases, each of which raises (and exits non-zero) on failure:
              the MLP and accept kernels on toy2d, the f32 conv kernel on the
              f32 run); %HQ, KL and modes covered of standard and collab
              sampling on toy2d; the MLP kernel against its plain version on
-             the trained D; and the bf16 conv kernel against its plain
-             version on the trained and on the shaped D, with the samples
-             beyond its bounds counted and named, not gated;
+             the trained D; the bf16 conv kernel on the trained and on the
+             shaped D and the f32 conv kernel on the f32 run's D, held to
+             float64 one step at a time (``trained_weight_gate``: median and
+             90th percentile of the per-sample error at most the plain
+             version's plus a tenth of the bf16 rounding's own effect
+             (bf16), or 4 times the plain version's (f32));
+5e. eval   - the trained mnist preset's standard and collab pools scored by
+             ``Experiment.evaluate`` at the preset's eval config (10,000
+             real samples, the classifier trained 1,500 steps) with
+             precision/recall on 2,048 and KID over 10 subsets: FID, KID,
+             precision, recall and each stage's seconds printed; every value
+             finite, precision and recall in [0, 1], the card's float32
+             Frechet distance within 1e-2 of the float64 host one, the
+             classifier's features on the card within 1e-4 (of their scale)
+             of the CPU's; ``fid_refine`` for one round must lower the batch
+             FID; Inception-v3 on random variables (written and read in the
+             msgpack format) over 1,024 generated samples, pool3 width
+             2,048;
 6. serving - ``ServingSampler(..., "collab").generate``: toy2d under the
              shaped D of phase 5 (n = 100,000 float32 samples), mnist under
              the shaped D of phase 4 (n = 4,096 uint8 samples), each with
@@ -442,10 +457,10 @@ def name_jump(torch, params, x0):
     return k, one, float(kink_margin(torch, params, x_prev)[0])
 
 
-def bf16_case(torch, params, x0, detail=None):
+def bf16_case(torch, params, x0):
     """The bf16 kernel against its plain version and the f32 kernel on x0,
-    printed, each sample beyond the bounds named (the first ``detail`` of
-    them with the step where its error jumped, all of them if None).
+    printed, each sample beyond the bounds named with the step where its
+    error jumped.
     Returns (the samples beyond the bounds, how many may be, max |dx| and
     |dlogit| over all, max |dx| and |dlogit| from the f32 kernel)."""
     from collaborative_gan_sampling_torch.ops.conv_refine import (
@@ -485,7 +500,7 @@ def bf16_case(torch, params, x0, detail=None):
               f"{float(dx.median()):.3e} and |dlogit| "
               f"{float(dl.median()):.3e} over the batch")
     with torch.backends.cudnn.flags(enabled=False):
-        for i in beyond[:, 0].tolist()[:detail]:
+        for i in beyond[:, 0].tolist():
             k, one, margin = name_jump(torch, params, x0[i:i + 1])
             print(f"     sample {i}: |dx| {float(dx[i]):.3e}, |dlogit| "
                   f"{float(dl[i]):.3e}; its error jumped at step {k}: "
@@ -526,6 +541,74 @@ def bf16_refine_cases(torch, dev):
                                  "bounds of the f32 kernel: its operands "
                                  "are not rounded")
         worst = max(worst, wx, wl)
+    return worst
+
+
+def trained_weight_gate(torch, params, x0, route, label):
+    """The criterion on trained weights (``ops/conv_refine_ref.py``): from
+    each x_t of the plain version's K-step trajectory from x0, one step of
+    the kernel, of the plain version (float32 sums) and of the same plain
+    function in float64 (the yardstick; the same bf16-rounded operands on
+    the bf16 route, where the float64 f32 step also gives what bf16
+    rounding does to the step). Over the batch, the kernel's median and
+    90th percentile of the per-sample |error|, on x and on the logit, may
+    be at most F32_FACTOR times the plain version's (f32), or the plain
+    version's plus BF16_FRACTION of the bf16 effect's (bf16); the 99th
+    percentile and the max are printed. Returns the largest share of its
+    allowance that each gated statistic took over the steps."""
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28,
+        fused_refine_conv28_bf16,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        BF16_FRACTION,
+        F32_FACTOR,
+        GATED,
+        beyond_criterion,
+        refine_conv28_plain,
+        refine_conv28_plain_bf16,
+        step_errors,
+    )
+
+    bf16 = route == "bf16"
+    kernel, plain = ((fused_refine_conv28_bf16, refine_conv28_plain_bf16)
+                     if bf16 else (fused_refine_conv28, refine_conv28_plain))
+    rule = (f"the plain version's plus {BF16_FRACTION:g} of the bf16 effect's"
+            if bf16 else f"{F32_FACTOR:g} times the plain version's")
+    print(f"   {label}, {route} kernel (B = {x0.shape[0]}, one step from "
+          f"each x_t, t < {STEPS}): |error| against float64 as median / "
+          f"90th / 99th percentile / max over the batch, kernel | plain"
+          + (" | bf16 effect" if bf16 else "") + f"; the kernel's median "
+          f"and 90th percentile may be {rule}")
+    worst, x = dict.fromkeys(GATED, 0.0), x0
+    for t in range(STEPS):
+        out = kernel(params, x, 1, RATE)
+        torch.cuda.synchronize()
+        with torch.backends.cudnn.flags(enabled=False):
+            ref = plain(params, x, 1, RATE)
+            yard = plain(params, x, 1, RATE, dtype=torch.float64)
+            effect = (step_errors(refine_conv28_plain(
+                params, x, 1, RATE, dtype=torch.float64), yard) if bf16
+                else None)
+        e_k, e_p = step_errors(out, yard), step_errors(ref, yard)
+        cols = (e_k, e_p) + ((effect,) if bf16 else ())
+        print(f"     step {t}: " + "; ".join(
+            f"{v} " + " | ".join(
+                f"{e[f'{v}_median']:.3e} / {e[f'{v}_q90']:.3e} / "
+                f"{e[f'{v}_q99']:.3e} / {e[f'{v}_max']:.3e}"
+                for e in cols)
+            for v in ("x", "logit")))
+        for k in GATED:
+            allowed = (e_p[k] + BF16_FRACTION * effect[k] if bf16
+                       else F32_FACTOR * e_p[k])
+            worst[k] = max(worst[k], e_k[k] / max(allowed, 1e-300))
+        over = beyond_criterion(e_k, e_p, effect)
+        if over:
+            raise AssertionError(f"{label}: the {route} kernel's {over} at "
+                                 f"step {t} are beyond {rule}")
+        x = ref[0]
+    print("     largest share of the allowance: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in worst.items()))
     return worst
 
 
@@ -1112,6 +1195,16 @@ def chunk_profile(torch, exp, state, label):
     return warm, per_iter, busy
 
 
+def g_samples(torch, exp, state, n, seed=21):
+    """n samples of the state's sampling G from a seeded z."""
+    from collaborative_gan_sampling_torch.training.gan import sampling_g
+
+    gen = torch.Generator(device=exp.device).manual_seed(seed)
+    with torch.no_grad():
+        return exp.bundle.generate(sampling_g(state),
+                                   exp.bundle.sample_z(gen, n))
+
+
 def sample_counted(torch, exp, state, method, counters, **kw):
     """``exp.sample`` with the counters set to 0 just before; the result
     checked finite of the expected shape, the accept rate in (0, 1]."""
@@ -1136,6 +1229,158 @@ def need_launches(launches, names, label):
     for k in names:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on {label}")
+
+
+# Phase 5e scores the trained mnist preset at its own eval config, uncut
+# (10,000 real samples in batches of 256, feature net "auto": the classifier
+# trained 1,500 steps on the procedural labels), with precision/recall and
+# KID switched on, and runs fid_refine for one round of the preset's batch.
+EVAL_OVERRIDES = ["eval.prd_samples=2048", "eval.kid_subsets=10",
+                  "refine.num_batches=1"]
+# The card's float32 Frechet distance (eigh) against the float64 host one on
+# the same stats: float32 eigenvalues carry ~1e-7 of the largest, whose
+# square roots at the clipped, rank-deficient end (dead relu units) reach
+# ~3e-4 of the spectrum's root each; relative to the FID, 1e-2.
+FRECHET_RTOL = 1e-2
+# The classifier's features on the card against the same module on the
+# CPU: float32 convs and dense layers summed in another order, TF32 off.
+FEATURE_ATOL = 1e-4  # of the features' largest magnitude
+INCEPTION_SAMPLES = 1024
+
+
+def timed(torch, fn):
+    """(fn(), seconds to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eval_phase(torch, dev, exp, state, pools):
+    """Phase 5e: each pool scored by ``Experiment.evaluate`` (FID, KID,
+    precision/recall) through the ported evals, each stage timed; the
+    card's float32 Frechet distance held to the float64 host one, the
+    classifier's features on the card to the CPU's; fid_refine for one
+    round; Inception-v3 on random variables over INCEPTION_SAMPLES
+    samples. Returns the readings."""
+    import copy
+
+    from collaborative_gan_sampling_torch.config import apply_overrides
+    from collaborative_gan_sampling_torch.evals.features import (
+        make_feature_fn,
+    )
+    from collaborative_gan_sampling_torch.evals.fid import (
+        frechet_distance,
+        frechet_distance_host,
+        stats_from_features,
+    )
+    from collaborative_gan_sampling_torch.evals.inception import (
+        init_inception,
+        save_inception_params,
+    )
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+
+    eexp = Experiment(apply_overrides(exp.cfg, EVAL_OVERRIDES),
+                      echo_metrics=False, device=dev)
+    ecfg = eexp.cfg.eval
+    phase(f"5e: evaluation on trained weights (mnist, {exp.cfg.train.niters}"
+          f" iterations): feature net {ecfg.feature_net!r}, "
+          f"{ecfg.fid_num_samples} real samples in batches of "
+          f"{ecfg.fid_batch_size}, precision/recall on {ecfg.prd_samples}, "
+          f"KID over {ecfg.kid_subsets} subsets of {ecfg.kid_subset_size}")
+    out = {}
+    fn, out["train_s"] = timed(torch, eexp._feature_fn)
+    print(f"   feature net {eexp._feature_label}: "
+          f"{ecfg.feature_train_steps} training steps in "
+          f"{out['train_s']:.2f} s")
+    real, out["real_s"] = timed(torch, eexp.real_stats)
+    print(f"   real stats: {int(real.n)} samples, {real.mu.shape[0]} "
+          f"features, {out['real_s']:.2f} s")
+
+    # The classifier on the card against the same weights on the CPU.
+    x, _ = eexp.dataset.batch(torch.Generator(device=dev).manual_seed(8),
+                              ecfg.fid_batch_size)
+    cpu = copy.deepcopy(fn.func).cpu()
+    with torch.no_grad():
+        f_card = fn(x).cpu()
+        f_cpu = cpu(x.cpu(), return_features=True)
+    err = float((f_card - f_cpu).abs().max())
+    scale = float(f_cpu.abs().max())
+    print(f"   classifier features, card against CPU on {x.shape[0]} real "
+          f"images: max |diff| {err:.3e} (largest feature {scale:.3e}, "
+          f"bound {FEATURE_ATOL:g} of it)")
+    if not err <= FEATURE_ATOL * scale:
+        raise AssertionError("the classifier's features on the card differ "
+                             "from the CPU's")
+
+    for name, res in pools.items():
+        pool, _ = eexp._accepted_pool(res)
+        bs = min(ecfg.fid_batch_size, pool.shape[0])
+        (feats, m), feat_s = timed(torch, lambda: eexp._feats_of(pool, bs))
+        stats = stats_from_features(feats)
+        host, host_s = timed(torch, lambda: frechet_distance_host(stats,
+                                                                  real))
+        card, card_s = timed(torch, lambda: float(frechet_distance(stats,
+                                                                   real)))
+        rel = abs(card - host) / abs(host)
+        m_all, eval_s = timed(torch, lambda: eexp.evaluate(res))
+        print(f"   {name}: FID {m_all['fid']:.4f}, KID {m_all['kid']:.6f} "
+              f"+- {m_all['kid_std']:.6f}, precision "
+              f"{m_all['precision']:.4f}, recall {m_all['recall']:.4f}, "
+              f"accept rate {m_all['accept_rate']:.4f} ({pool.shape[0]} "
+              f"samples, {m} scored)")
+        print(f"     seconds: features {feat_s:.3f}, float64 host distance "
+              f"{host_s:.3f}, float32 card distance {card_s:.3f}, the whole "
+              f"evaluate (features again, KID, precision/recall) "
+              f"{eval_s:.3f}; card FID {card:.6f} against host "
+              f"{host:.6f}: relative {rel:.3e} (bound {FRECHET_RTOL:g})")
+        values = [m_all[k] for k in ("fid", "kid", "kid_std", "precision",
+                                     "recall")] + [card, host]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: non-finite metrics {m_all}")
+        if not (0.0 <= m_all["precision"] <= 1.0
+                and 0.0 <= m_all["recall"] <= 1.0):
+            raise AssertionError(f"{name}: precision/recall outside [0, 1]")
+        if not rel <= FRECHET_RTOL:
+            raise AssertionError(f"{name}: the card's float32 FID differs "
+                                 "from the float64 host one")
+        out[name] = dict(m_all, features_s=feat_s, host_s=host_s,
+                         card_s=card_s, evaluate_s=eval_s, card_fid=card)
+
+    ref, out["fid_refine_s"] = timed(torch, lambda: eexp.fid_refine(state))
+    start = float(ref.aux["batch_fid_start"])
+    end = float(ref.aux["batch_fid_end"])
+    print(f"   fid_refine: {eexp.cfg.refine.num_batches} round of "
+          f"{eexp.cfg.refine.batch_size}, K = {eexp.cfg.refine.steps}, rate "
+          f"{eexp.cfg.refine.rate}: batch FID {start:.4f} -> {end:.4f} in "
+          f"{out['fid_refine_s']:.2f} s")
+    if not (math.isfinite(end) and end < start
+            and bool(torch.isfinite(ref.samples).all())):
+        raise AssertionError("fid_refine did not lower the batch FID")
+    out["fid_refine"] = (start, end)
+
+    path = os.path.join(TRAIN_DIR, "smoke_inception.msgpack")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    _, init_s = timed(torch, lambda: save_inception_params(
+        path, init_inception(gen, dev)))
+    inc, _ = make_feature_fn(f"inception:{path}", eexp.bundle.data_shape,
+                             device=dev)
+    x = pools["standard"].samples[:INCEPTION_SAMPLES]
+    with torch.no_grad():
+        feats, inc_s = timed(torch, lambda: torch.cat([
+            inc(x[i:i + ecfg.fid_batch_size])
+            for i in range(0, x.shape[0], ecfg.fid_batch_size)]))
+    os.remove(path)
+    print(f"   Inception-v3 (random variables, written and read back "
+          f"through the msgpack format, {init_s:.2f} s): pool3 width "
+          f"{feats.shape[1]} over {feats.shape[0]} generated samples in "
+          f"{inc_s:.2f} s (resize to 299 included)")
+    if feats.shape != (x.shape[0], 2048) or not bool(
+            torch.isfinite(feats).all()):
+        raise AssertionError(f"Inception features {tuple(feats.shape)}")
+    out["inception"] = (feats.shape[1], inc_s)
+    return out
 
 
 def train_phase(torch, dev):
@@ -1163,19 +1408,18 @@ def train_phase(torch, dev):
     total = {k: total[k] + launches[k] for k in total}
 
     phase(f"the bf16 conv kernel on trained weights (B = {BATCH}, x0 = the "
-          "trained G's samples): measured, not gated")
-    gen = torch.Generator(device=dev).manual_seed(21)
-    with torch.no_grad():
-        x0 = exp.bundle.generate(sampling_g(restored),
-                                 exp.bundle.sample_z(gen, BATCH))
+          "trained G's samples): against float64, gated")
+    x0 = g_samples(torch, exp, restored, BATCH)
     for label, d in (("trained D", restored.d),
                      ("shaped D", res.aux["shaped_d"])):
-        beyond, allowed, *_ = bf16_case(torch, fold_dcgan_d(d), x0,
-                                        detail=8)
-        print(f"   {label}: {len(beyond)} of {BATCH} samples beyond the "
-              f"bounds (the random-weight check allows {allowed}): "
-              f"{beyond}")
-        out[f"flips {label}"] = beyond
+        out[f"bf16 gate {label}"] = trained_weight_gate(
+            torch, fold_dcgan_d(d), x0, "bf16", label)
+
+    std, launches = sample_counted(torch, exp, restored, "standard",
+                                   counters)
+    total = {k: total[k] + launches[k] for k in total}
+    out["eval"] = eval_phase(torch, dev, exp, restored,
+                             {"standard": std, "collab": res})
 
     exp = toy2d_train(dev)
     state, restored, ips, _ = train_run(torch, exp, "toy2d")
@@ -1211,6 +1455,11 @@ def train_phase(torch, dev):
     need_launches(launches, ("conv_refine28", "drs_accept"),
                   "f32 mnist collab after training")
     total = {k: total[k] + launches[k] for k in total}
+    phase(f"the f32 conv kernel on trained weights (B = {BATCH}, the f32 "
+          "run's D and G): against float64, gated")
+    out["f32 gate"] = trained_weight_gate(
+        torch, fold_dcgan_d(restored.d),
+        g_samples(torch, exp, restored, BATCH), "f32", "trained D")
 
     for name in ("mnist", "toy2d", "options"):
         shutil.rmtree(os.path.join(TRAIN_DIR, f"smoke_{name}", "ckpts"))
@@ -1475,6 +1724,15 @@ def main() -> None:
         print(f"   train ({name}): {ips:.1f} iterations/s over the whole "
               f"call, {warm:.1f} in a warm chunk, {per_iter:.1f} host "
               f"launches per iteration, device busy {100 * busy:.1f}%")
+    ev = trained["eval"]
+    for name in ("standard", "collab"):
+        m = ev[name]
+        print(f"   eval ({name}, trained mnist): FID {m['fid']:.4f}, KID "
+              f"{m['kid']:.6f} +- {m['kid_std']:.6f}, precision "
+              f"{m['precision']:.4f}, recall {m['recall']:.4f}")
+    print(f"   eval stages: classifier {ev['train_s']:.2f} s, real stats "
+          f"{ev['real_s']:.2f} s, fid_refine {ev['fid_refine_s']:.2f} s, "
+          f"Inception over {INCEPTION_SAMPLES} {ev['inception'][1]:.2f} s")
     print(f"   whole script: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

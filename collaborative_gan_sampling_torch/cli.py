@@ -7,13 +7,18 @@ the port has:
     cli refine    --config toy2d refine.method=refinement
     cli collab    --config toy2d          # refine + reject + shape
     cli generate  --config toy2d n=100000 out=samples.npz
+    cli eval      --config mnist          # sample refine.method, evaluate
+    cli sweep     --config mnist sweep_steps=1,5,10,20,50
     cli presets
 
 Any config field is overridable as dotted key=value
 (``config.apply_overrides``). Commands after ``train`` restore the latest
 checkpoint of the workdir (one that either package wrote) and resume
-training first if it is behind ``train.niters``. Runs on the card unless
-``--device cpu`` is given.
+training first if it is behind ``train.niters``. ``refine``, ``collab`` and
+``eval`` print ``Experiment.evaluate`` of their samples (FID, with KID and
+precision/recall when configured, on image presets; %HQ and KL on 2D);
+``sweep`` prints the refinement-depth sweep and its best K. Runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(prog="cgs-torch")
     parser.add_argument("command", choices=["train", "refine", "collab",
-                                            "generate", "presets"])
+                                            "eval", "sweep", "generate",
+                                            "presets"])
     parser.add_argument("--config", default="toy2d",
                         help=f"preset: {list_presets()}")
     parser.add_argument("--workdir", default="")
@@ -66,14 +72,18 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     gen_n, gen_out = 10_000, ""
+    sweep_steps = [1, 5, 10, 20, 50]
     kept = []
     for ov in overrides:
-        # generate-only keys: on another command a stray n= or out= raises
-        # the unknown-field error instead of being swallowed.
+        # generate's and sweep's own keys: on another command a stray n=,
+        # out= or sweep_steps= raises the unknown-field error instead of
+        # being swallowed.
         if args.command == "generate" and ov.startswith("n="):
             gen_n = int(ov.split("=", 1)[1])
         elif args.command == "generate" and ov.startswith("out="):
             gen_out = ov.split("=", 1)[1]
+        elif args.command == "sweep" and ov.startswith("sweep_steps="):
+            sweep_steps = [int(k) for k in ov.split("=", 1)[1].split(",")]
         else:
             kept.append(ov)
     cfg = _build_cfg(args, kept)
@@ -88,16 +98,17 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     state = exp.load_or_train()
-    if args.command in ("refine", "collab"):
+    if args.command in ("refine", "collab", "eval"):
         method = args.method or ("collab" if args.command == "collab"
                                  else cfg.refine.method)
         res = exp.sample(state, method=method)
-        if exp.is_2d:
-            metrics = exp.evaluate(res)
-        else:  # FID is not ported yet
-            metrics = {"accept_rate": res.accept_rate,
-                       "num_samples": int(res.samples.shape[0])}
-        print(json.dumps({"method": method, **metrics}))
+        print(json.dumps({"method": method, **exp.evaluate(res)}))
+        return 0
+
+    if args.command == "sweep":
+        best_k, table = exp.select_k(state, sweep_steps,
+                                     method=args.method or "refinement")
+        print(json.dumps({"best_k": best_k, "sweep": table}))
         return 0
 
     # generate: the serving path, streaming accepted samples.

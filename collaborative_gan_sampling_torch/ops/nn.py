@@ -77,6 +77,40 @@ class SameConv2d(nn.Module):
                            self.stride)
 
 
+class FlaxConv(nn.Module):
+    """Flax ``nn.Conv``: any (kh, kw) kernel, SAME (XLA's pads, possibly
+    asymmetric) or VALID padding, optional bias. ``forward`` may take
+    another stride than the module's (the feature nets pick it by input
+    size). Weight in torch's (out, in, kh, kw) layout."""
+
+    def __init__(self, cin: int, cout: int, kernel: tuple[int, int],
+                 stride: int = 1, padding: str = "SAME", bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.zeros(cout, cin, *kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def reset_parameters(self, generator=None) -> None:
+        """Flax's default: lecun-normal kernel (fan_in = in * kh * kw),
+        zero bias."""
+        fan_in = self.weight[0].numel()
+        std = (1.0 / fan_in) ** 0.5 / LECUN_TRUNC_STD
+        dev = generator.device if generator is not None else self.weight.device
+        w = torch.empty(self.weight.shape, device=dev)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        with torch.no_grad():
+            self.weight.copy_(w * std)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, stride: int | None = None
+                ) -> torch.Tensor:
+        stride = stride or self.stride
+        if self.padding == "SAME":
+            return conv2d_same(x, self.weight, self.bias, stride)
+        return F.conv2d(x, self.weight, self.bias, stride=stride)
+
+
 class SameConvTranspose2d(nn.Module):
     """Flax ``ConvTranspose(kernel 5, strides 2, padding='SAME')``: out = 2*in.
 

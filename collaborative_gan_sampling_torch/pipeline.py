@@ -11,16 +11,28 @@ training and sampling phases:
 * ``sample`` (the five strategies) and ``generate`` (the serving sampler),
   both with the EMA generator when it is tracked;
 * ``save_shaped_d`` / ``load_shaped_d``: the shaped D of a collab run, in
-  the same format.
+  the same format;
+* evaluation: ``evaluate`` (the 2D metrics, or for images FID with KID and
+  precision/recall when configured), ``real_stats`` (cached in the process
+  and, with ``eval.real_stats_path``, in an npz), ``fid_of_samples``,
+  ``kid``, ``precision_recall``, ``fid_refine`` (FID-backprop refinement),
+  ``sweep`` / ``select_k`` over the refinement depth, and
+  ``adopt_eval_caches``. The feature net is ``eval.feature_net``; "auto"
+  trains a classifier on labelled image data and RotNet on unlabelled
+  data. Feature nets, moments and distances run in float32 with TF32 off
+  on the card (``utils/precision.py``). Each draws its own stream,
+  ``step_generator(seed, i, "eval")`` at the JAX package's indices: 1 the
+  real stats, 3 precision/recall and fid_refine, 4 KID.
 
-FID, sweeps, tuning, export and the figures are not ported yet; they raise
-``NotImplementedError``. Everything runs on the card unless ``device``
-says otherwise.
+Intra-FID (with the class-conditional models), tuning, export and the
+figures are not ported yet; they raise ``NotImplementedError``.
+Everything runs on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import time
 
@@ -33,11 +45,29 @@ from collaborative_gan_sampling_torch.data.synthetic2d import (
     make_mixture,
     sample_mixture,
 )
+from collaborative_gan_sampling_torch.evals.features import (
+    make_feature_fn,
+    train_classifier_features,
+    train_rotation_features,
+)
+from collaborative_gan_sampling_torch.evals.fid import (
+    frechet_distance,
+    frechet_distance_host,
+    load_stats,
+    save_stats,
+    stats_from_features,
+    streaming_stats,
+)
+from collaborative_gan_sampling_torch.evals.kid import kid
 from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
+from collaborative_gan_sampling_torch.evals.prd import precision_recall
 from collaborative_gan_sampling_torch.models import make_bundle
 from collaborative_gan_sampling_torch.sampling.collab import (
     SampleResult,
     sample,
+)
+from collaborative_gan_sampling_torch.sampling.fid_refine import (
+    make_fid_refine_fn,
 )
 from collaborative_gan_sampling_torch.sampling.serve import ServingSampler
 from collaborative_gan_sampling_torch.training.gan import (
@@ -53,17 +83,18 @@ from collaborative_gan_sampling_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from collaborative_gan_sampling_torch.utils.logging import MetricsWriter
-from collaborative_gan_sampling_torch.utils.prng import step_generator
+from collaborative_gan_sampling_torch.utils.prng import (
+    fold_generator,
+    step_generator,
+)
 from collaborative_gan_sampling_torch.utils.weights import (
     load_jax_variables,
     to_jax_variables,
 )
 
 # The JAX Experiment's methods that the port does not have yet.
-_NOT_PORTED = ("adopt_eval_caches", "benchmark", "export", "fid_of_samples",
-               "fid_refine", "intra_fid", "kid", "precision_recall",
-               "profile", "real_stats", "select_hparams", "select_k", "sweep",
-               "teaser")
+_NOT_PORTED = ("benchmark", "export", "intra_fid", "profile",
+               "select_hparams", "teaser")
 
 
 def shaped_d_path(workdir: str) -> str:
@@ -262,9 +293,20 @@ class Experiment:
     # -- evaluation ---------------------------------------------------------
 
     def evaluate(self, result: SampleResult) -> dict[str, float]:
-        if not self.is_2d:
-            raise NotImplementedError("FID is not ported to PyTorch yet")
-        return self.evaluate_2d(result)
+        if self.is_2d:
+            return self.evaluate_2d(result)
+        self._feature_fn()  # the label
+        out = {"fid": self.fid_of_samples(result.samples, result.accepted),
+               "accept_rate": result.accept_rate,
+               "feature_net": self._feature_label}
+        if self.cfg.eval.prd_samples > 0:
+            out.update(self.precision_recall(result))
+        if self.cfg.eval.kid_subsets > 0:
+            out.update(self.kid(result))
+        if (self.cfg.eval.intra_fid_classes > 0 and self.bundle.conditional
+                and result.labels is not None):
+            out.update(self.intra_fid(result))
+        return out
 
     def evaluate_2d(self, result: SampleResult) -> dict[str, float]:
         m = metrics_2d(result.samples, self.spec,
@@ -273,3 +315,226 @@ class Experiment:
         out = {k: float(v) for k, v in m.items()}
         out["accept_rate"] = result.accept_rate
         return out
+
+    def _feature_fn(self):
+        """The feature net, built once: on image data "auto" trains the
+        classifier on labelled data and RotNet on unlabelled data;
+        otherwise ``make_feature_fn``."""
+        if not hasattr(self, "_cached_feature_fn"):
+            cfg = self.cfg.eval
+            labels = getattr(getattr(self, "dataset", None), "labels", None)
+            kw = dict(steps=cfg.feature_train_steps, seed=self.seed,
+                      device=self.device)
+            if cfg.feature_net == "auto" and not self.is_2d \
+                    and labels is not None:
+                self._cached_feature_fn, _ = train_classifier_features(
+                    self.dataset.batch, int(labels.max()) + 1,
+                    self.bundle.data_shape, **kw)
+                self._feature_label = "torch/trained_classifier"
+            elif cfg.feature_net == "auto" and not self.is_2d:
+                self._cached_feature_fn, _ = train_rotation_features(
+                    lambda gen, n: self.data_fn(gen, n)[0],
+                    self.bundle.data_shape, **kw)
+                self._feature_label = "torch/rotnet"
+            else:
+                self._cached_feature_fn, self._feature_label = \
+                    make_feature_fn(cfg.feature_net, self.bundle.data_shape,
+                                    seed=self.seed, device=self.device)
+        return self._cached_feature_fn
+
+    def adopt_eval_caches(self, src: "Experiment",
+                          include_real_stats: bool | None = None) -> None:
+        """Take ``src``'s feature net (and its real stats, when both
+        configs agree on eval.fid_num_samples / fid_batch_size, or as
+        ``include_real_stats`` says), so that two Experiments over the same
+        data score in one feature space without training it twice. Asking
+        for the real stats across protocols raises."""
+        self._cached_feature_fn = src._feature_fn()
+        self._feature_label = src._feature_label
+        same_protocol = (
+            src.cfg.eval.fid_num_samples == self.cfg.eval.fid_num_samples
+            and src.cfg.eval.fid_batch_size == self.cfg.eval.fid_batch_size)
+        if include_real_stats is None:
+            include_real_stats = same_protocol
+        if include_real_stats:
+            if not same_protocol:
+                raise ValueError(
+                    "adopt_eval_caches(include_real_stats=True) across "
+                    "different eval protocols: src has "
+                    f"{src.cfg.eval.fid_num_samples}/"
+                    f"{src.cfg.eval.fid_batch_size} samples/batch, self has "
+                    f"{self.cfg.eval.fid_num_samples}/"
+                    f"{self.cfg.eval.fid_batch_size} — the real-side stats "
+                    "would mislabel the protocol")
+            if hasattr(src, "_real_stats"):
+                self._real_stats = src._real_stats
+
+    def real_stats(self, generator: torch.Generator | None = None):
+        """(mu, Sigma) of eval.fid_num_samples real images under the feature
+        net, computed once per process; with eval.real_stats_path also
+        loaded from / saved to that npz. A file of another feature net (by
+        its label) or another feature width is refused."""
+        if not hasattr(self, "_real_stats"):
+            cfg = self.cfg.eval
+            gen = generator or step_generator(self.seed, 1, "eval",
+                                              self.device)
+            feature_fn = self._feature_fn()
+            if cfg.real_stats_path and os.path.exists(cfg.real_stats_path):
+                stats, label = load_stats(cfg.real_stats_path, self.device)
+                if label and label != self._feature_label:
+                    raise ValueError(
+                        f"{cfg.real_stats_path} was computed under feature "
+                        f"net {label!r} but this run uses "
+                        f"{self._feature_label!r} — FID across feature nets "
+                        "is meaningless; recompute or fix eval.feature_net")
+                with torch.no_grad():
+                    fdim = feature_fn(torch.zeros(
+                        (1, *self.bundle.data_shape),
+                        device=self.device)).shape[-1]
+                if stats.mu.shape[0] != fdim:
+                    raise ValueError(
+                        f"{cfg.real_stats_path}: stats are {stats.mu.shape[0]}"
+                        f"-dim but the feature net emits {fdim}-dim features")
+                self._real_stats = stats
+                return self._real_stats
+            nb = max(1, cfg.fid_num_samples // cfg.fid_batch_size)
+            self._real_stats = streaming_stats(
+                feature_fn, lambda g, n: self.data_fn(g, n)[0], nb,
+                cfg.fid_batch_size, gen)
+            if cfg.real_stats_path:
+                save_stats(cfg.real_stats_path, self._real_stats,
+                           feature_net=self._feature_label)
+        return self._real_stats
+
+    @staticmethod
+    def _accepted_pool(result: SampleResult, n: int | None = None):
+        """(accepted samples, their labels or None), the first ``n``: the one
+        definition of the pool that an evaluation scores."""
+        samples, labels = result.samples, result.labels
+        if result.accepted is not None:
+            mask = result.accepted.bool()
+            samples = samples[mask]
+            labels = labels[mask] if labels is not None else None
+        if n is not None:
+            samples = samples[:n]
+            labels = labels[:n] if labels is not None else None
+        return samples, labels
+
+    def _feats_of(self, x: torch.Tensor, bs: int
+                  ) -> tuple[torch.Tensor, int]:
+        """Features of ``x`` in batches of ``bs`` (in [1, len(x)]), the
+        remainder dropped: (features, rows used)."""
+        feature_fn = self._feature_fn()
+        m = (x.shape[0] // bs) * bs
+        with torch.no_grad():
+            f = torch.cat([feature_fn(x[i:i + bs]) for i in range(0, m, bs)])
+        return f, m
+
+    def fid_of_samples(self, samples: torch.Tensor,
+                       accepted: torch.Tensor | None = None) -> float:
+        """FID between the real stats and ``samples`` (or their accepted
+        subset); inf for an empty pool. The distance is the float64 host
+        one, or with eval.newton_schulz_iters > 0 the float32 Newton-Schulz
+        one on the device."""
+        self._feature_fn()
+        if accepted is not None:
+            samples = samples[accepted.bool()]
+        if samples.shape[0] == 0:
+            return float("inf")
+        bs = min(self.cfg.eval.fid_batch_size, samples.shape[0])
+        stats = stats_from_features(self._feats_of(samples, bs)[0])
+        ns_iters = self.cfg.eval.newton_schulz_iters
+        if ns_iters > 0:
+            return float(frechet_distance(stats, self.real_stats(),
+                                          ns_iters))
+        return frechet_distance_host(stats, self.real_stats())
+
+    def kid(self, result: SampleResult, n: int | None = None
+            ) -> dict[str, float]:
+        """KID (arXiv:1801.01401) in the FID's feature space, mean and std
+        over eval.kid_subsets subsets; inf for a pool of fewer than 2."""
+        ecfg = self.cfg.eval
+        n = n or ecfg.fid_num_samples
+        self._feature_fn()
+        samples, _ = self._accepted_pool(result, n)
+        if samples.shape[0] < 2:
+            return {"kid": float("inf"), "kid_std": 0.0}
+        gen = step_generator(self.seed, 4, "eval", self.device)
+        x_real, _ = self.data_fn(gen, min(n, samples.shape[0]))
+        bs = min(ecfg.fid_batch_size, samples.shape[0], x_real.shape[0])
+        mean, std = kid(self._feats_of(x_real, bs)[0],
+                        self._feats_of(samples, bs)[0],
+                        fold_generator(gen, 1), n_subsets=ecfg.kid_subsets,
+                        subset_size=ecfg.kid_subset_size)
+        return {"kid": float(mean), "kid_std": float(std)}
+
+    def precision_recall(self, result: SampleResult,
+                         n: int | None = None) -> dict[str, float]:
+        """Improved precision / recall (arXiv:1904.06991) in the FID's
+        feature space; zeros for a pool of at most eval.prd_k points."""
+        n = n or self.cfg.eval.prd_samples or 2048
+        self._feature_fn()
+        samples, _ = self._accepted_pool(result, n)
+        if samples.shape[0] <= self.cfg.eval.prd_k:
+            return {"precision": 0.0, "recall": 0.0}
+        gen = step_generator(self.seed, 3, "eval", self.device)
+        x_real, _ = self.data_fn(gen, n)
+        bs = min(self.cfg.eval.fid_batch_size, samples.shape[0], n)
+        pr = precision_recall(self._feats_of(x_real, bs)[0],
+                              self._feats_of(samples, bs)[0],
+                              k=self.cfg.eval.prd_k)
+        return {k: float(v) for k, v in pr.items()}
+
+    def fid_refine(self, state: TrainState,
+                   generator: torch.Generator | None = None,
+                   steps: int | None = None,
+                   rate: float | None = None) -> SampleResult:
+        """FID-backprop refinement (arXiv:2009.14075) of refine.num_batches
+        batches of G samples toward the real stats
+        (``sampling/fid_refine.py``); all accepted. aux holds the batches'
+        mean loss at x0 and at x_K (``batch_fid_start``,
+        ``batch_fid_end``)."""
+        gen = generator or step_generator(self.seed, 3, "eval", self.device)
+        cfg = self.cfg.refine
+        refine = make_fid_refine_fn(self._feature_fn(), self.real_stats(),
+                                    steps or cfg.steps, rate or cfg.rate)
+        g, xs, logits, starts, ends = sampling_g(state), [], [], [], []
+        for i in range(cfg.num_batches):
+            z = self.bundle.sample_z(fold_generator(gen, i), cfg.batch_size)
+            with torch.no_grad():
+                x0 = self.bundle.generate(g, z)
+            x, aux = refine(x0)
+            with torch.no_grad():
+                logits.append(self.bundle.discriminate(state.d, x))
+            xs.append(x)
+            starts.append(aux["fid_start"])
+            ends.append(aux["fid_end"])
+        samples = torch.cat(xs)
+        return SampleResult(
+            samples, torch.ones(samples.shape[0], dtype=torch.bool,
+                                device=samples.device),
+            torch.cat(logits), None,
+            {"batch_fid_start": torch.stack(starts).mean(),
+             "batch_fid_end": torch.stack(ends).mean()})
+
+    def sweep(self, state: TrainState, ks: list[int],
+              method: str = "refinement") -> dict[int, dict]:
+        """``evaluate`` of ``method`` at each refinement depth k in ``ks``;
+        the feature net and the real stats are computed once."""
+        out = {}
+        for k in ks:
+            rcfg = dataclasses.replace(self.cfg.refine, steps=k)
+            out[k] = self.evaluate(self.sample(state, method=method,
+                                               refine_cfg=rcfg))
+        return out
+
+    def select_k(self, state: TrainState, ks: list[int] | None = None,
+                 method: str = "refinement",
+                 metric: str | None = None) -> tuple[int, dict[int, dict]]:
+        """The refinement depth K that minimises FID (images) or mode KL
+        (2D) over ``sweep(ks)`` (default 1 .. 50, log-spaced): (best K, the
+        whole table)."""
+        ks = ks or [1, 2, 5, 10, 20, 50]
+        metric = metric or ("kl" if self.is_2d else "fid")
+        table = self.sweep(state, ks, method=method)
+        return min(table, key=lambda k: table[k][metric]), table

@@ -43,3 +43,14 @@ def step_generator(seed: int, step: int, role: str = "z",
     gen = torch.Generator(device=device)
     gen.manual_seed(step_seed(seed, step, role))
     return gen
+
+
+def fold_generator(generator: torch.Generator, i: int) -> torch.Generator:
+    """The ``i``-th substream of ``generator`` (the port's ``fold_in``): a
+    new generator on the same device, seeded from the parent's initial seed
+    and ``i``, so it does not depend on what the parent has drawn."""
+    text = f"{generator.initial_seed()}/{int(i)}".encode()
+    gen = torch.Generator(device=generator.device)
+    gen.manual_seed(int.from_bytes(hashlib.sha256(text).digest()[:8],
+                                   "little"))
+    return gen

@@ -2,13 +2,15 @@
 
 JAX variables are given as nested dicts of numpy arrays,
 ``{'params': {...}, 'batch_stats': {...}}``, keyed by the Flax module names;
-the port's submodules carry the same names. Layouts:
+the port's submodules carry the same names, nested as deep as the Flax
+modules are (Inception-v3's ``Mixed_5b/branch5x5_1/conv``). Layouts:
 
 =====================  ========================  ===========================
 layer                  Flax                      port
 =====================  ========================  ===========================
 Dense                  kernel (in, out)          weight (out, in)
-Conv                   kernel (kh, kw, in, out)  weight (out, in, kh, kw)
+Conv                   kernel (kh, kw, in, out)  weight (out, in, kh, kw);
+                                                 no bias where Flax has none
 ConvTranspose (SAME)   kernel (kh, kw, in, out)  weight (in, out, kh, kw),
                                                  spatially flipped
 BatchNorm              scale, bias; mean, var    weight, bias; running_*
@@ -31,18 +33,46 @@ from torch import nn
 from collaborative_gan_sampling_torch.ops.nn import (
     Dense,
     FlaxBatchNorm,
+    FlaxConv,
     SameConv2d,
     SameConvTranspose2d,
 )
+
+# The layers that hold Flax params; any other submodule is a container
+# whose children are looked up one level down in the Flax tree.
+_LAYERS = (Dense, FlaxBatchNorm, FlaxConv, SameConv2d, SameConvTranspose2d)
+
+
+def _layers(module: nn.Module, path: tuple[str, ...] = ()):
+    """(Flax path, layer) of every layer under ``module``, in order."""
+    for name, child in module.named_children():
+        if isinstance(child, _LAYERS):
+            yield path + (name,), child
+        else:
+            yield from _layers(child, path + (name,))
+
+
+def _at(tree: Any, path: tuple[str, ...]) -> Any:
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _put(tree: dict, path: tuple[str, ...], value: Any) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
 
 
 def _to_torch(layer: nn.Module, p: dict) -> dict[str, np.ndarray]:
     if isinstance(layer, Dense):
         return {"weight": np.asarray(p["kernel"]).T,
                 "bias": np.asarray(p["bias"])}
-    if isinstance(layer, SameConv2d):
-        return {"weight": np.asarray(p["kernel"]).transpose(3, 2, 0, 1),
-                "bias": np.asarray(p["bias"])}
+    if isinstance(layer, (SameConv2d, FlaxConv)):
+        out = {"weight": np.asarray(p["kernel"]).transpose(3, 2, 0, 1)}
+        if layer.bias is not None:
+            out["bias"] = np.asarray(p["bias"])
+        return out
     if isinstance(layer, SameConvTranspose2d):
         k = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
         return {"weight": k, "bias": np.asarray(p["bias"])}
@@ -52,14 +82,17 @@ def _to_torch(layer: nn.Module, p: dict) -> dict[str, np.ndarray]:
     raise TypeError(f"no Flax counterpart for {type(layer).__name__}")
 
 
-def _to_flax(layer: nn.Module, w: np.ndarray, b: np.ndarray
+def _to_flax(layer: nn.Module, w: np.ndarray, b: np.ndarray | None
              ) -> dict[str, np.ndarray]:
     """Flax arrays of one layer's (weight, bias)-shaped pair: its params,
-    or Adam's moments of them."""
+    or Adam's moments of them (``b`` None for a bias-free conv)."""
     if isinstance(layer, Dense):
         return {"kernel": w.T.copy(), "bias": b}
-    if isinstance(layer, SameConv2d):
-        return {"kernel": w.transpose(2, 3, 1, 0).copy(), "bias": b}
+    if isinstance(layer, (SameConv2d, FlaxConv)):
+        out = {"kernel": w.transpose(2, 3, 1, 0).copy()}
+        if b is not None:
+            out["bias"] = b
+        return out
     if isinstance(layer, SameConvTranspose2d):
         return {"kernel": w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1).copy(),
                 "bias": b}
@@ -76,16 +109,18 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_flax(module: nn.Module, of=lambda p: p) -> dict[str, dict]:
     """The Flax params tree of ``module``, or of ``of(p)`` for each of its
     parameters p (e.g. an optimizer's moment of p), as numpy arrays."""
-    return {name: _to_flax(layer, _numpy(of(layer.weight)),
-                           _numpy(of(layer.bias)))
-            for name, layer in module.named_children()}
+    out: dict = {}
+    for path, layer in _layers(module):
+        bias = None if layer.bias is None else _numpy(of(layer.bias))
+        _put(out, path, _to_flax(layer, _numpy(of(layer.weight)), bias))
+    return out
 
 
 def _tensors_from_flax(module: nn.Module, params: Any):
     """(parameter, numpy array in its layout) for every parameter of
     ``module`` from a Flax params-shaped tree."""
-    for name, layer in module.named_children():
-        for attr, value in _to_torch(layer, params[name]).items():
+    for path, layer in _layers(module):
+        for attr, value in _to_torch(layer, _at(params, path)).items():
             yield getattr(layer, attr), np.array(value)
 
 
@@ -103,21 +138,23 @@ def load_jax_variables(module: nn.Module, variables: Any) -> nn.Module:
     load_jax_params(module, variables["params"])
     stats = variables.get("batch_stats", {})
     with torch.no_grad():
-        for name, layer in module.named_children():
+        for path, layer in _layers(module):
             if isinstance(layer, FlaxBatchNorm):
+                bn = _at(stats, path)
                 layer.running_mean.copy_(torch.tensor(
-                    np.array(stats[name]["mean"]), dtype=torch.float32))
+                    np.array(bn["mean"]), dtype=torch.float32))
                 layer.running_var.copy_(torch.tensor(
-                    np.array(stats[name]["var"]), dtype=torch.float32))
+                    np.array(bn["var"]), dtype=torch.float32))
     return module
 
 
 def to_jax_variables(module: nn.Module) -> dict[str, dict]:
     """The module's state as JAX variables (nested dicts of numpy arrays)."""
-    stats = {name: {"mean": _numpy(layer.running_mean),
-                    "var": _numpy(layer.running_var)}
-             for name, layer in module.named_children()
-             if isinstance(layer, FlaxBatchNorm)}
+    stats: dict = {}
+    for path, layer in _layers(module):
+        if isinstance(layer, FlaxBatchNorm):
+            _put(stats, path, {"mean": _numpy(layer.running_mean),
+                               "var": _numpy(layer.running_var)})
     out = {"params": params_to_flax(module)}
     if stats:
         out["batch_stats"] = stats

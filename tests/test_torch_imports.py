@@ -60,6 +60,29 @@ def test_make_bundle_needs_a_card_unless_told(monkeypatch):
                        device="cpu").device.type == "cpu"
 
 
+def test_eval_entry_points_need_a_card_unless_told(monkeypatch):
+    """The feature nets, their trainers and Inception-v3 run on the card
+    unless the caller asks for the CPU."""
+    from collaborative_gan_sampling_torch.evals import features, inception
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+            lambda d: features.make_feature_fn("random_conv", (8, 8, 1),
+                                               device=d),
+            lambda d: features.train_classifier_features(
+                lambda g, n: (torch.zeros(n, 8, 8, 1),
+                              torch.zeros(n, dtype=torch.long)),
+                2, (8, 8, 1), steps=1, batch=2, device=d),
+            lambda d: features.train_rotation_features(
+                lambda g, n: torch.zeros(n, 8, 8, 1), (8, 8, 1), steps=1,
+                batch=2, device=d)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(None)
+        assert call("cpu")[0](torch.zeros(1, 8, 8, 1)).ndim == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inception.init_inception()
+
+
 def _run_smoke(cwd: Path, script: Path):
     return subprocess.run([sys.executable, str(script)], cwd=cwd,
                           capture_output=True, text=True, timeout=120)

@@ -2,8 +2,8 @@
 exact, the tail chunk stops at ``niters``, logs truncate on a fresh run,
 ``load_or_train`` resumes a run that is behind, ``generate("collab")``
 persists and reuses the shaped D, and the CLI's ``train``, ``collab`` and
-``generate`` run end to end. Also the config helpers against the JAX
-package's.
+``generate`` run end to end; image sampling is scored by FID. Also the
+config helpers against the JAX package's.
 
 Resume is compared bit for bit: a checkpoint holds every float exactly and
 each iteration's draws are keyed by (seed, index, role), so an interrupted
@@ -125,13 +125,21 @@ def test_generate_collab_persists_and_reuses_the_shaped_d(tmp_path):
 
 
 def test_image_experiment_samples_and_refuses_fid(tmp_path):
-    exp = _exp(_cfg(tmp_path, "mnist", ("model.compute_dtype=float32",)))
+    """Image sampling is scored by FID; the FID the port does not have yet
+    (intra-FID, with the class-conditional models) and export are
+    refused."""
+    exp = _exp(_cfg(tmp_path, "mnist", (
+        "model.compute_dtype=float32", "eval.fid_num_samples=32",
+        "eval.fid_batch_size=16", "eval.feature_train_steps=2")))
     state = exp.train(niters=2)
     res = exp.sample(state, method="collab")
     assert res.samples.shape == (16, 16, 16, 1)
     assert bool(torch.isfinite(res.samples).all())
-    with pytest.raises(NotImplementedError, match="FID"):
-        exp.evaluate(res)
+    out = exp.evaluate(res)
+    assert np.isfinite(out["fid"]) and out["fid"] > 0
+    assert out["feature_net"] == "torch/trained_classifier"
+    with pytest.raises(NotImplementedError, match="intra_fid"):
+        exp.intra_fid(res)
     with pytest.raises(NotImplementedError, match="export"):
         exp.export(state, "x")
 
