@@ -81,6 +81,26 @@ Phases, each of which raises (and exits non-zero) on failure:
              kernel also by its device time per launch from
              torch.profiler, beside the least time the card could take.
 
+5c. imagenet64 - run last, after 7: the class-conditional preset at
+             full width (DCGAN 64x64x3, z = 128, 96/96 filters, 1,000
+             classes, bf16, K = 10, rate 0.01, batch 256, shape_every 4)
+             on its 20,000 procedural images, through ``Experiment``: 100
+             of its 100,000 iterations (cut for time) in chunks of 10,
+             restored bit for bit; collab (40 rounds, burn-in 2,048,
+             global M, class-balanced shaping: the accept kernel 40 times,
+             labels (10,240,) in [0, 1,000), every shaping real batch of
+             the refined batch's labels), timed warm, and a run of 4
+             rounds timed warm and then profiled (host launches a round,
+             device busy share of the profiled and of the warm wall, the
+             share of D's conv0 and its VJP); collab under per-class
+             DRS (burn-in 16,384: M (1,000,) finite, 40 launches, round
+             0's kernel mask equal to ``drs_accept_mask_philox_plain``
+             outside |u - p| < 1e-6); ``generate(4096, "collab",
+             class_id=7)`` (every label 7, one launch a batch); z-space
+             collab (4 rounds, 4 launches); and intra-FID of the collab
+             pool over its 10 most frequent classes (at least 5 counted,
+             finite).
+
 Between phases 5 and 6, one DRS step through ``sampling/rejection.py`` is
 profiled: the key's draw and the kernel, at most two launches.
 
@@ -1466,6 +1486,245 @@ def train_phase(torch, dev):
     return total, out
 
 
+# Phase 5c: the imagenet64 preset (the class-conditional DCGAN: 64x64x3,
+# z = 128, 96/96 filters, 1,000 classes, bf16; K = 10, rate 0.01, batch
+# 256, shape_every 4) at full width on its procedural data (20,000 images),
+# trained 100 of its 100,000 iterations (cut for time).
+IN64_TRAIN = ["train.niters=100", "train.log_every=10"]
+# Per-class DRS needs burn_in >> num_classes: 16,384 is ~16 samples a class.
+IN64_PER_CLASS_BURN_IN = 16_384
+# Intra-FID over the 10 most frequent classes of the collab pool (~4,000
+# accepted samples over 1,000 classes, ~4 real samples a class): a class
+# counts from 2 samples on each side (the preset's 32 would count none).
+IN64_INTRA = ["eval.intra_fid_classes=10", "eval.intra_fid_min_count=2"]
+IN64_INTRA_CLASSES = 5  # at least this many classes must count
+IN64_CLASS, IN64_SERVE = 7, 4096  # targeted serving: class, samples
+IN64_PROFILE_ROUNDS = 4
+
+
+def imagenet64_experiment(dev):
+    """An Experiment on the imagenet64 preset uncut in width: 100
+    iterations in its chunks of 10, a checkpoint at the end."""
+    return train_experiment("imagenet64", "imagenet64",
+                            IN64_TRAIN + IN64_INTRA, dev)
+
+
+def conv0_share(torch, fn, data_shape):
+    """fn() under torch.profiler with shapes recorded: (wall seconds,
+    device ms of all kernels, device ms under D's conv0 ops, host launches,
+    the profiler's averages). conv0's ops are the convolutions (forward and
+    backward) that take the padded (B, C, H + 3, W + 3) image, which no
+    other convolution of the pair takes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    h, w, c = data_shape
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, conv0, ops = 0.0, 0.0, 0
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            busy += e.time_range.elapsed_us() / 1e3
+        elif e.name in ("aten::convolution", "aten::convolution_backward") \
+                and any(list(s[1:]) == [c, h + 3, w + 3]
+                        for s in e.input_shapes if len(s) == 4):
+            conv0 += e.device_time_total / 1e3
+            ops += 1
+    averages = prof.key_averages()
+    return wall, busy, (conv0, ops), host_launches(averages), averages
+
+
+def imagenet64_phase(torch, dev):
+    """Train -> checkpoint -> restore -> collab (global M, per-class M),
+    targeted serving, z-space collab and intra-FID on the imagenet64
+    preset. Returns the accept kernel's launches and the readings."""
+    from collaborative_gan_sampling_torch.ops import accept as A
+    from collaborative_gan_sampling_torch.sampling import rejection
+
+    counters = {"drs_accept": A.drs_accept_mask_philox}
+    t_phase = time.perf_counter()
+    exp = imagenet64_experiment(dev)
+    rcfg = exp.cfg.refine
+    state, restored, ips, _ = train_run(torch, exp, "imagenet64")
+    out = {"train_ips": ips}
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 5c]"
+
+    phase(f"5c: imagenet64 collab on the restored state ({rcfg.num_batches} "
+          f"rounds x {rcfg.batch_size}, burn-in {rcfg.burn_in}, K = "
+          f"{rcfg.steps}, rate {rcfg.rate}, shape_every {rcfg.shape_every}, "
+          f"class-balanced shaping {rcfg.class_balanced_shaping}, "
+          f"{exp.cfg.model.compute_dtype})" + at())
+
+    # Every shaping real batch against the refined batch it goes with.
+    shaping = []
+    real_cond = exp.dataset.batch_by_labels
+
+    def cond_spy(gen, labels):
+        x, lab = real_cond(gen, labels)
+        shaping.append(bool(torch.equal(lab, labels)))
+        return x, lab
+
+    exp.dataset.batch_by_labels = cond_spy
+    res, launches = sample_counted(torch, exp, restored, "collab", counters)
+    exp.dataset.batch_by_labels = real_cond
+    rounds = rcfg.num_batches
+    total = launches["drs_accept"]
+    n = rounds * rcfg.batch_size
+    labels = res.labels
+    ok_labels = (labels is not None and tuple(labels.shape) == (n,)
+                 and int(labels.min()) >= 0
+                 and int(labels.max()) < exp.bundle.num_classes)
+    want_shapes = -(-rounds // rcfg.shape_every) * rcfg.shaping_steps
+    print(f"   labels {None if labels is None else tuple(labels.shape)} in "
+          f"[{int(labels.min())}, {int(labels.max())}]; {len(shaping)} "
+          f"shaping real batches, {sum(shaping)} with the refined batch's "
+          "labels")
+    if not ok_labels:
+        raise AssertionError("imagenet64 collab labels are not (N,) in "
+                             "[0, num_classes)")
+    if launches["drs_accept"] != rounds:
+        raise AssertionError(f"imagenet64 collab launched the accept kernel "
+                             f"{launches['drs_accept']} times, not {rounds}")
+    if len(shaping) != want_shapes or not all(shaping):
+        raise AssertionError("class-balanced shaping did not draw the "
+                             "refined batch's labels")
+    if not 0.0 < res.accept_rate < 1.0:
+        raise AssertionError(f"imagenet64 accept rate {res.accept_rate}")
+
+    # The same run warm and timed. A short one (IN64_PROFILE_ROUNDS and
+    # one burn-in round; a whole run is ~64,000 launches, more than one
+    # profiler session keeps) timed warm, then the same short run
+    # profiled: its device ms over its own profiled wall is the busy share
+    # the profile measures (the profiler slows the host), over the warm
+    # wall of the same work the share without the profiler's cost.
+    _, seconds, _ = counted(torch, lambda: exp.sample(restored, "collab"),
+                            counters)
+    out["samples_per_s"] = n / seconds
+    short = dataclasses.replace(rcfg, num_batches=IN64_PROFILE_ROUNDS,
+                                burn_in=rcfg.batch_size)
+
+    def run_short():
+        return exp.sample(restored, "collab", refine_cfg=short)
+
+    _, short_s = timed(torch, run_short)
+    wall, busy_ms, (conv0_ms, conv0_ops), launches_host, averages = \
+        conv0_share(torch, run_short, exp.bundle.data_shape)
+    per_round = busy_ms / (IN64_PROFILE_ROUNDS + 1)
+    out.update(busy=busy_ms / (wall * 1e3), conv0=conv0_ms / busy_ms,
+               launches_per_round=launches_host / (IN64_PROFILE_ROUNDS + 1),
+               device_ms_per_round=per_round, wall_ms=seconds * 1e3,
+               busy_warm=busy_ms / (short_s * 1e3))
+    print(f"   warm: {seconds * 1e3:.1f} ms wall, {out['samples_per_s']:.1f} "
+          f"refined samples/s; short run ({IN64_PROFILE_ROUNDS} rounds and 1 "
+          f"burn-in round) {short_s * 1e3:.1f} ms warm, {wall * 1e3:.1f} ms "
+          f"profiled, device busy {busy_ms:.1f} ms ({per_round:.2f} a "
+          f"round; {100 * out['busy']:.1f}% of the profiled wall, "
+          f"{100 * out['busy_warm']:.1f}% of the warm one), "
+          f"{launches_host} host launches ({out['launches_per_round']:.1f} a "
+          f"round), D's conv0 and its VJP {conv0_ms:.1f} ms in {conv0_ops} "
+          f"ops ({100 * out['conv0']:.1f}% of the device time)")
+    by_dev = sorted(averages, key=lambda a: -a.self_device_time_total)[:6]
+    print("     by device time: " + "; ".join(
+        f"{a.key[:44]} {a.self_device_time_total / 1e3:.2f} ms x{a.count}"
+        for a in by_dev))
+
+    phase(f"5c: per-class DRS collab (burn-in {IN64_PER_CLASS_BURN_IN})"
+          + at())
+    pcfg = dataclasses.replace(rcfg, per_class_drs=True,
+                               burn_in=IN64_PER_CLASS_BURN_IN)
+    calls = []
+    real_philox = rejection.drs_accept_mask_philox
+
+    def philox_spy(seed, logits, logit_max, *args):
+        mask = real_philox(seed, logits, logit_max, *args)
+        if not calls:  # the first round: its inputs and the kernel's mask
+            calls.append((seed.clone(), logits.clone(), logit_max, args,
+                          mask.clone()))
+        return mask
+
+    rejection.drs_accept_mask_philox = philox_spy
+    try:
+        pres, launches = sample_counted(torch, exp, restored, "collab",
+                                        counters, refine_cfg=pcfg)
+    finally:
+        rejection.drs_accept_mask_philox = real_philox
+    total += launches["drs_accept"]
+    m = pres.aux["logit_max"]
+    seed, folded, m0, (gamma, eps, pct), got = calls[0]
+    want = A.drs_accept_mask_philox_plain(seed, folded, m0, gamma, eps, pct)
+    g = A.gamma_total_plain(folded, m0, gamma, pct, eps)
+    f = torch.clamp_max(folded - m0, -eps)
+    p = torch.sigmoid(f - torch.log(1.0 - torch.exp(f - eps)) - g)
+    u = A.bits_to_uniform(A.philox_bits_plain(seed, folded.shape[0]))
+    outside = (u - p).abs() >= ACCEPT_BAND
+    bad = int(((got != want) & outside).sum())
+    print(f"   M {tuple(m.shape)}, finite {bool(torch.isfinite(m).all())}, "
+          f"range [{float(m.min()):.4f}, {float(m.max()):.4f}]; round 0: "
+          f"{int((got != want).sum())} masks differ from the plain "
+          f"version's ({bad} outside |u - p| < {ACCEPT_BAND:g})")
+    if tuple(m.shape) != (exp.bundle.num_classes,) or not bool(
+            torch.isfinite(m).all()):
+        raise AssertionError("per-class M is not finite of shape (C,)")
+    if launches["drs_accept"] != rounds or bad:
+        raise AssertionError(f"per-class DRS: {launches['drs_accept']} "
+                             f"launches, {bad} masks off the plain version")
+
+    phase(f"5c: targeted serving, generate({IN64_SERVE}, collab, class_id="
+          f"{IN64_CLASS})" + at())
+    exp.save_shaped_d(res)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    samples, slabels, stats = exp.generate(
+        restored, IN64_SERVE, method="collab", class_id=IN64_CLASS,
+        generator=torch.Generator(device=dev).manual_seed(5))
+    out["serve_s"] = time.perf_counter() - t0
+    served = counters["drs_accept"].launches
+    total += served
+    print(f"   {tuple(samples.shape)} {samples.dtype}, labels all "
+          f"{IN64_CLASS}: {bool((slabels == IN64_CLASS).all())}, "
+          f"{out['serve_s']:.2f} s, accept rate {stats['accept_rate']:.4f}, "
+          f"{stats['rounds']} rounds, accept kernel launches {served}")
+    if (samples.shape[0] != IN64_SERVE or slabels is None
+            or not bool((slabels == IN64_CLASS).all())):
+        raise AssertionError(f"targeted serving did not return {IN64_SERVE} "
+                             f"samples of class {IN64_CLASS}")
+    if served != stats["rounds"] * rcfg.num_batches:
+        raise AssertionError(f"serving launched the accept kernel {served} "
+                             "times, not once a batch")
+
+    phase("5c: z-space collab (refine.space=z), 4 rounds" + at())
+    zcfg = dataclasses.replace(rcfg, space="z", num_batches=4,
+                               burn_in=rcfg.batch_size)
+    zres, launches = sample_counted(torch, exp, restored, "collab",
+                                    counters, refine_cfg=zcfg)
+    total += launches["drs_accept"]
+    if launches["drs_accept"] != 4:
+        raise AssertionError("z-space collab launched the accept kernel "
+                             f"{launches['drs_accept']} times, not 4")
+
+    phase("5c: intra-FID of the collab pool (" + ", ".join(IN64_INTRA) + ")"
+          + at())
+    (intra, secs) = timed(torch, lambda: exp.intra_fid(res))
+    out["intra_fid"] = intra
+    print(f"   intra-FID {intra['intra_fid']:.4f} over "
+          f"{intra['intra_fid_classes']} classes, {secs:.2f} s (the "
+          "classifier's training included)")
+    if (not math.isfinite(intra["intra_fid"])
+            or intra["intra_fid_classes"] < IN64_INTRA_CLASSES):
+        raise AssertionError(f"intra-FID {intra}")
+    shutil.rmtree(exp.workdir)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"   phase 5c: {out['seconds']:.1f} s")
+    return total, out
+
+
 def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
@@ -1680,6 +1939,10 @@ def main() -> None:
 
     phase("timing at the main paths' shapes (CUDA events)")
     times = timing(torch, dev)
+    # Phase 5c last: its profile of the conditional path is the largest.
+    in64_launches, in64 = imagenet64_phase(torch, dev)
+    # Its collab, per-class, serving and z-space runs.
+    launches["drs_accept"] += in64_launches
     rows = []
     meta = {
         "conv_refine28": dict(
@@ -1733,6 +1996,16 @@ def main() -> None:
     print(f"   eval stages: classifier {ev['train_s']:.2f} s, real stats "
           f"{ev['real_s']:.2f} s, fid_refine {ev['fid_refine_s']:.2f} s, "
           f"Inception over {INCEPTION_SAMPLES} {ev['inception'][1]:.2f} s")
+    print(f"   imagenet64 (phase 5c, {in64['seconds']:.1f} s): train "
+          f"{in64['train_ips']:.1f} iterations/s over the whole call; collab "
+          f"{in64['samples_per_s']:.1f} refined samples/s warm "
+          f"({in64['wall_ms']:.1f} ms), {in64['launches_per_round']:.1f} "
+          f"host launches a round, device busy {100 * in64['busy']:.1f}% "
+          f"of a profiled short run's wall ({100 * in64['busy_warm']:.1f}% "
+          "of the same run's warm wall), "
+          f"D's conv0 ops {100 * in64['conv0']:.1f}% of the device time; "
+          f"intra-FID {in64['intra_fid']['intra_fid']:.4f} over "
+          f"{in64['intra_fid']['intra_fid_classes']} classes")
     print(f"   whole script: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -7,6 +7,7 @@ the port has:
     cli refine    --config toy2d refine.method=refinement
     cli collab    --config toy2d          # refine + reject + shape
     cli generate  --config toy2d n=100000 out=samples.npz
+    cli generate  --config imagenet64 n=4096 class=7   # one class
     cli eval      --config mnist          # sample refine.method, evaluate
     cli sweep     --config mnist sweep_steps=1,5,10,20,50
     cli presets
@@ -71,17 +72,19 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(list_presets()))
         return 0
 
-    gen_n, gen_out = 10_000, ""
+    gen_n, gen_out, gen_class = 10_000, "", None
     sweep_steps = [1, 5, 10, 20, 50]
     kept = []
     for ov in overrides:
         # generate's and sweep's own keys: on another command a stray n=,
-        # out= or sweep_steps= raises the unknown-field error instead of
-        # being swallowed.
+        # out=, class= or sweep_steps= raises the unknown-field error
+        # instead of being swallowed.
         if args.command == "generate" and ov.startswith("n="):
             gen_n = int(ov.split("=", 1)[1])
         elif args.command == "generate" and ov.startswith("out="):
             gen_out = ov.split("=", 1)[1]
+        elif args.command == "generate" and ov.startswith("class="):
+            gen_class = int(ov.split("=", 1)[1])
         elif args.command == "sweep" and ov.startswith("sweep_steps="):
             sweep_steps = [int(k) for k in ov.split("=", 1)[1].split(",")]
         else:
@@ -114,7 +117,7 @@ def main(argv: list[str] | None = None) -> int:
     # generate: the serving path, streaming accepted samples.
     method = args.method or cfg.refine.method
     _, _, stats = exp.generate(state, gen_n, method=method,
-                               out=gen_out or None)
+                               out=gen_out or None, class_id=gen_class)
     print(json.dumps(stats))
     return 0
 

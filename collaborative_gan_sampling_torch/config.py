@@ -22,8 +22,9 @@ class ModelConfig:
 
     ``kind='mlp'``: relu MLPs for the 2D synthetic mixtures (``data_dim``,
     ``*_hidden``, ``*_layers``). ``kind='dcgan'``: transposed-conv generator
-    and conv discriminator for 28x28x1 .. 64x64x3 images. ``num_classes > 0``
-    (class-conditional models) is not ported yet.
+    and conv discriminator for 28x28x1 .. 64x64x3 images; ``num_classes >
+    0`` makes the DCGAN pair class-conditional (a label embedding in G, a
+    projection D).
     """
 
     kind: str = "mlp"  # 'mlp' | 'dcgan'
@@ -82,7 +83,7 @@ class RefineConfig:
     clip_norm: float = 0.0  # 0 = no per-sample gradient clipping
     noise: float = 0.0  # Langevin noise: x += sqrt(2*rate*noise)*N(0, I)
     objective: str = "ns"  # 'ns' | 'kl' | 'saturating'
-    space: str = "x"  # 'x' (ported) | 'z' (not ported yet)
+    space: str = "x"  # 'x' (data space) | 'z' (latent space)
     stop_score: float = 0.0  # freeze a sample once sigmoid(D(x)) >= this
     proximal: float = 0.0  # drift += proximal * (x - x0)
     use_pallas: bool = True  # use the hand kernels where they apply

@@ -7,10 +7,12 @@ files from ``cfg.path`` when they are there and otherwise builds the same
 deterministic procedural image distribution as the JAX package, so every
 path stays runnable offline.
 
+``ImageDataset.batch_by_labels`` draws one real image of each requested
+class (class-balanced shaping of a conditional D) through a per-class index
+table on the device.
+
 Not ported yet: the CIFAR-10 and image-folder loaders (their presets are not
-ported either), resizing file datasets to another ``image_size``, and
-``ImageDataset.batch_by_labels`` (class-balanced draws, with the
-class-conditional models).
+ported either) and resizing file datasets to another ``image_size``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import math
 import os
 import struct
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -38,10 +40,20 @@ class ImageDataset:
     labels: torch.Tensor | None  # (N,) int32, or None for unlabelled data
     name: str = "unknown"
     procedural: bool = False
+    # (per-class index table, per-class counts), built at the first
+    # batch_by_labels
+    _class_table: tuple | None = field(default=None, repr=False)
 
     @property
     def n(self) -> int:
         return self.images.shape[0]
+
+    @property
+    def num_classes(self) -> int:
+        """max label + 1 (1 for an empty label set), 0 for unlabelled data."""
+        if self.labels is None:
+            return 0
+        return int(self.labels.max()) + 1 if self.labels.numel() else 1
 
     @property
     def image_shape(self) -> tuple[int, int, int]:
@@ -54,6 +66,42 @@ class ImageDataset:
                             device=self.images.device)
         labels = self.labels[idx] if self.labels is not None else None
         return normalize_images(self.images[idx]), labels
+
+    def batch_by_labels(self, generator: torch.Generator | None,
+                        labels: torch.Tensor):
+        """(one image of class ``labels[i]`` per row, in [-1, 1], labels):
+        a uniform draw r in [0, 2^30) per row picks entry r % count of the
+        class's row of the index table (``batch_by_labels_from``)."""
+        r = torch.randint(0, 1 << 30, labels.shape, generator=generator,
+                          device=self.images.device)
+        return self.batch_by_labels_from(r, labels)
+
+    def batch_by_labels_from(self, r: torch.Tensor, labels: torch.Tensor):
+        """``batch_by_labels`` with its draws ``r`` given (the parity
+        entry): image ``table[labels, r % counts[labels]]``."""
+        table, counts = self.class_table()
+        want = labels.to(self.images.device)
+        idx = table[want, r.to(self.images.device) % counts[want]]
+        return normalize_images(self.images[idx]), labels
+
+    def class_table(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(table (C, cap) int64, counts (C,) int64): row c lists the
+        indices of class c, tiled cyclically to the largest class count
+        ``cap``; a class with no image has the one entry 0 (count 1)."""
+        if self.labels is None:
+            raise ValueError(f"dataset {self.name!r} has no labels")
+        if self._class_table is None:
+            labs = self.labels.cpu().numpy()
+            per_class = [np.flatnonzero(labs == c)
+                         for c in range(self.num_classes)]
+            cap = max(1, max(len(p) for p in per_class))
+            table = np.stack([np.resize(p if len(p) else np.zeros(1, int),
+                                        cap) for p in per_class])
+            counts = np.array([max(len(p), 1) for p in per_class])
+            dev = self.images.device
+            self._class_table = (torch.from_numpy(table).long().to(dev),
+                                 torch.from_numpy(counts).long().to(dev))
+        return self._class_table
 
 
 def normalize_images(u8: torch.Tensor) -> torch.Tensor:

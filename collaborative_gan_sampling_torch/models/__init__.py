@@ -9,7 +9,13 @@ the bundle's methods take those modules where the JAX methods take variables:
 * ``bundle.discriminate(d, x, train=False)`` -> logits (B,); with
   ``train=True`` BatchNorm uses batch statistics and updates its running
   averages in place,
-* ``bundle.sample_z(generator, n)``, ``bundle.init(generator)``.
+* ``bundle.sample_z(generator, n)``, ``bundle.sample_labels(generator,
+  n)`` (int64 labels in [0, num_classes), or None for an unconditional
+  pair), ``bundle.init(generator)``.
+
+Class-conditional DCGANs (``num_classes`` > 0) take the labels in
+``generate`` and ``discriminate``; the MLP pair is unconditional, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -65,6 +71,14 @@ class GANBundle:
         return torch.randn((n, self.z_dim), generator=generator,
                            device=self.device)
 
+    def sample_labels(self, generator: torch.Generator | None, n: int
+                      ) -> torch.Tensor | None:
+        """Uniform class labels, (n,) int64, or None when unconditional."""
+        if not self.conditional:
+            return None
+        return torch.randint(0, self.num_classes, (n,), generator=generator,
+                             device=self.device)
+
     def init(self, generator: torch.Generator
              ) -> tuple[torch.nn.Module, torch.nn.Module]:
         """Fresh (G, D) modules on the bundle's device, initialised from
@@ -78,9 +92,10 @@ class GANBundle:
                                  self.dtype)
         else:
             g = DCGANGenerator(c.image_size, c.channels, c.g_base_filters,
-                               c.z_dim, self.dtype)
+                               c.z_dim, self.dtype, self.num_classes)
             d = DCGANDiscriminator(c.image_size, c.channels,
-                                   c.d_base_filters, self.dtype)
+                                   c.d_base_filters, self.dtype,
+                                   self.num_classes)
         g, d = g.to(self.device), d.to(self.device)
         reset_parameters(g, generator)
         reset_parameters(d, generator)
@@ -89,20 +104,21 @@ class GANBundle:
     def generate(self, g: torch.nn.Module, z: torch.Tensor,
                  labels: torch.Tensor | None = None,
                  train: bool = False) -> torch.Tensor:
-        _unconditional(labels)
-        return g.train(train)(z)
+        return g.train(train)(z, *self._labels(labels))
 
     def discriminate(self, d: torch.nn.Module, x: torch.Tensor,
                      labels: torch.Tensor | None = None,
                      train: bool = False) -> torch.Tensor:
-        _unconditional(labels)
-        return d.train(train)(x)
+        return d.train(train)(x, *self._labels(labels))
 
-
-def _unconditional(labels) -> None:
-    if labels is not None:
-        raise NotImplementedError(
-            "class-conditional models are not ported yet")
+    def _labels(self, labels) -> tuple:
+        """The labels argument of a forward: needed by a conditional pair,
+        refused by an unconditional one."""
+        if self.conditional != (labels is not None):
+            raise ValueError(
+                "a conditional model needs labels" if self.conditional
+                else "an unconditional model takes no labels")
+        return (labels,) if self.conditional else ()
 
 
 def make_bundle(cfg: ModelConfig, device: str | torch.device | None = None
@@ -113,13 +129,10 @@ def make_bundle(cfg: ModelConfig, device: str | torch.device | None = None
                          data_shape=(cfg.data_dim,), num_classes=0)
     if cfg.kind != "dcgan":
         raise ValueError(f"unknown model kind {cfg.kind!r}")
-    if cfg.num_classes > 0:
-        raise NotImplementedError(
-            "class-conditional models are not ported yet")
     if num_stages(cfg.image_size) == 0:
         raise ValueError(
             f"model.image_size={cfg.image_size} is not supported by the "
             "DCGAN stack: it must halve at least once to a spatial size >= 4")
     shape = (cfg.image_size, cfg.image_size, cfg.channels)
     return GANBundle(cfg=cfg, device=device, z_dim=cfg.z_dim,
-                     data_shape=shape, num_classes=0)
+                     data_shape=shape, num_classes=cfg.num_classes)

@@ -156,6 +156,24 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class Embed(nn.Module):
+    """Flax ``nn.Embed`` with the DCGAN init: a ``(num, features)`` float32
+    table named ``embedding``, N(0, 0.02); rows gathered by integer index
+    and cast to ``dtype``."""
+
+    def __init__(self, num: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.zeros(num, features))
+
+    def reset_parameters(self, generator=None) -> None:
+        _normal_(self.embedding, generator)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.embedding).to(self.dtype)
+
+
 class LecunDense(Dense):
     """``nn.Dense`` with Flax's default init (the MLP models): lecun-normal
     kernels, i.e. a unit normal truncated at +-2 and scaled to

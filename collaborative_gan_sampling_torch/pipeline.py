@@ -8,24 +8,27 @@ training and sampling phases:
   periodic checkpoints (the JAX package's file format, so checkpoints
   cross between the two packages);
 * ``load_state`` / ``load_or_train``: the sampling phases' entry;
-* ``sample`` (the five strategies) and ``generate`` (the serving sampler),
-  both with the EMA generator when it is tracked;
+* ``sample`` (the five strategies; a conditional model's collab shapes
+  on real batches of the refined batch's classes) and ``generate`` (the
+  serving sampler, optionally of one ``class_id``), both with the EMA
+  generator when it is tracked;
 * ``save_shaped_d`` / ``load_shaped_d``: the shaped D of a collab run, in
   the same format;
 * evaluation: ``evaluate`` (the 2D metrics, or for images FID with KID and
   precision/recall when configured), ``real_stats`` (cached in the process
   and, with ``eval.real_stats_path``, in an npz), ``fid_of_samples``,
-  ``kid``, ``precision_recall``, ``fid_refine`` (FID-backprop refinement),
+  ``kid``, ``precision_recall``, ``intra_fid`` (per-class FID of a
+  conditional model's pool), ``fid_refine`` (FID-backprop refinement),
   ``sweep`` / ``select_k`` over the refinement depth, and
   ``adopt_eval_caches``. The feature net is ``eval.feature_net``; "auto"
   trains a classifier on labelled image data and RotNet on unlabelled
   data. Feature nets, moments and distances run in float32 with TF32 off
   on the card (``utils/precision.py``). Each draws its own stream,
   ``step_generator(seed, i, "eval")`` at the JAX package's indices: 1 the
-  real stats, 3 precision/recall and fid_refine, 4 KID.
+  real stats, 3 precision/recall and fid_refine, 4 KID, 5 intra-FID.
 
-Intra-FID (with the class-conditional models), tuning, export and the
-figures are not ported yet; they raise ``NotImplementedError``.
+Tuning, export and the figures are not ported yet; they raise
+``NotImplementedError``.
 Everything runs on the card unless ``device`` says otherwise.
 """
 
@@ -54,6 +57,7 @@ from collaborative_gan_sampling_torch.evals.fid import (
     frechet_distance,
     frechet_distance_host,
     load_stats,
+    per_class_fid,
     save_stats,
     stats_from_features,
     streaming_stats,
@@ -93,8 +97,8 @@ from collaborative_gan_sampling_torch.utils.weights import (
 )
 
 # The JAX Experiment's methods that the port does not have yet.
-_NOT_PORTED = ("benchmark", "export", "intra_fid", "profile",
-               "select_hparams", "teaser")
+_NOT_PORTED = ("benchmark", "export", "profile", "select_hparams",
+               "teaser")
 
 
 def shaped_d_path(workdir: str) -> str:
@@ -123,9 +127,18 @@ class Experiment:
         else:
             self.dataset = load_image_dataset(
                 cfg.data, image_size=cfg.model.image_size, device=self.device)
+            conditional = self.bundle.conditional
+            if conditional and (self.dataset.num_classes
+                                > cfg.model.num_classes):
+                raise ValueError(
+                    f"model.num_classes={cfg.model.num_classes} is smaller "
+                    f"than the dataset's {self.dataset.num_classes} classes "
+                    f"({self.dataset.name}): its labels would index past the "
+                    "label embeddings")
 
-            def data_fn(generator, n):  # unconditional models only
-                return self.dataset.batch(generator, n)[0], None
+            def data_fn(generator, n):
+                x, labels = self.dataset.batch(generator, n)
+                return x, (labels if conditional else None)
 
         self.data_fn = data_fn
 
@@ -231,19 +244,22 @@ class Experiment:
         gen = generator or step_generator(self.seed, 0, "eval", self.device)
         d = (self.load_shaped_d(template=state.d) if use_shaped_d
              else state.d)
+        cond_fn = (self.dataset.batch_by_labels if self.bundle.conditional
+                   and self.dataset.labels is not None else None)
         return sample(self.bundle, sampling_g(state), d,
                       refine_cfg or self.cfg.refine, gen, method=method,
-                      data_fn=self.data_fn)
+                      data_fn=self.data_fn, cond_data_fn=cond_fn)
 
     def generate(self, state: TrainState, n: int, method: str | None = None,
                  use_shaped_d: bool = False,
                  generator: torch.Generator | None = None,
-                 out: str | None = None):
+                 out: str | None = None, class_id: int | None = None):
         """Serving: at least ``n`` accepted samples through
-        ``ServingSampler``. collab serves under a shaped D: the persisted
-        one, or else one collab pass shapes D first (drawing from the same
-        generator) and persists it. Returns (samples, labels, stats); with
-        ``out``, also writes the samples to an .npz."""
+        ``ServingSampler`` (all of class ``class_id`` where given). collab
+        serves under a shaped D: the persisted one, or else one collab pass
+        shapes D first (drawing from the same generator) and persists it.
+        Returns (samples, labels, stats); with ``out``, also writes the
+        samples (and labels) to an .npz."""
         method = method or self.cfg.refine.method
         gen = generator or step_generator(self.seed, 9, "eval", self.device)
         d = state.d
@@ -255,10 +271,14 @@ class Experiment:
             d = res.aux["shaped_d"]
         elif method == "collab" or use_shaped_d:
             d = self.load_shaped_d(template=state.d)
-        srv = ServingSampler(self.bundle, self.cfg.refine, method=method)
+        srv = ServingSampler(self.bundle, self.cfg.refine, method=method,
+                             class_id=class_id)
         samples, labels, stats = srv.generate(sampling_g(state), d, gen, n)
         if out:
-            np.savez(out, samples=samples.cpu().numpy())
+            arrays = {"samples": samples.numpy()}
+            if labels is not None:
+                arrays["labels"] = labels.numpy()
+            np.savez(out, **arrays)
             stats["out"] = out
         return samples, labels, stats
 
@@ -449,6 +469,32 @@ class Experiment:
                                           ns_iters))
         return frechet_distance_host(stats, self.real_stats())
 
+    def intra_fid(self, result: SampleResult) -> dict[str, float]:
+        """Per-class FID (``evals/fid.py::per_class_fid``) of the first
+        eval.fid_num_samples accepted samples against as many real ones,
+        averaged over the eval.intra_fid_classes most frequent classes of
+        the pool that have eval.intra_fid_min_count samples on both sides;
+        inf for an empty pool."""
+        if result.labels is None:
+            raise ValueError("intra_fid needs the pool's labels (a "
+                             "class-conditional model's samples)")
+        ecfg = self.cfg.eval
+        n = ecfg.fid_num_samples
+        self._feature_fn()
+        samples, labels_f = self._accepted_pool(result, n)
+        if samples.shape[0] == 0:
+            return {"intra_fid": float("inf"), "intra_fid_classes": 0.0}
+        gen = step_generator(self.seed, 5, "eval", self.device)
+        x_real, labels_r = self.dataset.batch(gen, min(n, samples.shape[0]))
+        bs = min(ecfg.fid_batch_size, samples.shape[0], x_real.shape[0])
+        fr, mr = self._feats_of(x_real, bs)
+        ff, mf = self._feats_of(samples, bs)
+        res = per_class_fid(fr, labels_r[:mr], ff, labels_f[:mf],
+                            min_count=ecfg.intra_fid_min_count,
+                            max_classes=ecfg.intra_fid_classes)
+        return {"intra_fid": res["intra_fid"],
+                "intra_fid_classes": res["intra_fid_classes"]}
+
     def kid(self, result: SampleResult, n: int | None = None
             ) -> dict[str, float]:
         """KID (arXiv:1801.01401) in the FID's feature space, mean and std
@@ -498,22 +544,27 @@ class Experiment:
         cfg = self.cfg.refine
         refine = make_fid_refine_fn(self._feature_fn(), self.real_stats(),
                                     steps or cfg.steps, rate or cfg.rate)
-        g, xs, logits, starts, ends = sampling_g(state), [], [], [], []
+        g, xs, labels, logits, starts, ends = (sampling_g(state), [], [], [],
+                                               [], [])
         for i in range(cfg.num_batches):
-            z = self.bundle.sample_z(fold_generator(gen, i), cfg.batch_size)
+            gen_i = fold_generator(gen, i)
+            z = self.bundle.sample_z(gen_i, cfg.batch_size)
+            lab = self.bundle.sample_labels(gen_i, cfg.batch_size)
             with torch.no_grad():
-                x0 = self.bundle.generate(g, z)
+                x0 = self.bundle.generate(g, z, lab)
             x, aux = refine(x0)
             with torch.no_grad():
-                logits.append(self.bundle.discriminate(state.d, x))
+                logits.append(self.bundle.discriminate(state.d, x, lab))
             xs.append(x)
+            labels.append(lab)
             starts.append(aux["fid_start"])
             ends.append(aux["fid_end"])
         samples = torch.cat(xs)
         return SampleResult(
             samples, torch.ones(samples.shape[0], dtype=torch.bool,
                                 device=samples.device),
-            torch.cat(logits), None,
+            torch.cat(logits),
+            torch.cat(labels) if self.bundle.conditional else None,
             {"batch_fid_start": torch.stack(starts).mean(),
              "batch_fid_end": torch.stack(ends).mean()})
 

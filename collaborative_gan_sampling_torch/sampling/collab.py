@@ -17,6 +17,14 @@ collab, per round i:
      max(M, max(logits)); with shaping off the burn-in M stays;
   3. DRS accept mask;
   4. if i % shape_every == 0: ``shaping_steps`` D updates on (real, x).
+
+Conditional models draw a label per sample beside z, and every result keeps
+them (``SampleResult.labels``). With ``per_class_drs`` the burn-in M is one
+per class (``estimate_logit_max_per_class``) and folds into the logits
+(``fold_per_class``); in collab each class's M takes step 2 over the
+round's samples of that class and stays where the round has none. With
+``class_balanced_shaping`` and a ``cond_data_fn(generator, labels)``, the
+shaping real batch holds the refined batch's labels.
 """
 
 from __future__ import annotations
@@ -35,8 +43,11 @@ from collaborative_gan_sampling_torch.sampling.refine import (
     make_draw_refine_fn,
 )
 from collaborative_gan_sampling_torch.sampling.rejection import (
+    class_max,
     drs_accept_mask,
     estimate_logit_max,
+    estimate_logit_max_per_class,
+    fold_per_class,
 )
 from collaborative_gan_sampling_torch.training.shaping import ShapingStep
 
@@ -44,8 +55,8 @@ METHODS = ("standard", "reject", "mhgan", "refinement", "collab")
 
 
 class SampleResult(NamedTuple):
-    """samples (N, H, W, C), accepted (N,) bool, logits (N,), labels (None
-    for unconditional models), aux (strategy-specific)."""
+    """samples (N, H, W, C), accepted (N,) bool, logits (N,), labels (N,)
+    int64 (None for unconditional models), aux (strategy-specific)."""
 
     samples: torch.Tensor
     accepted: torch.Tensor
@@ -63,17 +74,20 @@ class SampleResult(NamedTuple):
 
 def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
            generator: torch.Generator | None, method: str | None = None,
-           data_fn: Callable | None = None) -> SampleResult:
+           data_fn: Callable | None = None,
+           cond_data_fn: Callable | None = None) -> SampleResult:
     """Run a sampling strategy end to end on the bundle's device.
     ``data_fn(generator, n) -> (x, labels)`` supplies real batches (needed
-    by collab shaping; used by mhgan for calibration and chain init). The
-    given ``d`` is left as it is; collab returns the shaped copy in
-    ``aux['shaped_d']``."""
+    by collab shaping; used by mhgan for calibration and chain init);
+    ``cond_data_fn(generator, labels) -> (x, labels)`` real batches of the
+    given classes (collab's class-balanced shaping). The given ``d`` is
+    left as it is; collab returns the shaped copy in ``aux['shaped_d']``."""
     method = method or cfg.method
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {METHODS}")
     if method == "collab":
-        return _sample_collab(bundle, g, d, cfg, generator, data_fn)
+        return _sample_collab(bundle, g, d, cfg, generator, data_fn,
+                              cond_data_fn)
     if method == "mhgan":
         return _sample_mhgan(bundle, g, d, cfg, generator, data_fn)
     fn = {"standard": _sample_standard, "reject": _sample_reject,
@@ -81,44 +95,54 @@ def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
     return fn(bundle, g, d, cfg, generator)
 
 
+def _per_class_drs(bundle, cfg) -> bool:
+    return cfg.per_class_drs and bundle.conditional
+
+
 def _draw(bundle, g, generator, n):
+    """z -> G(z), with a label per sample for a conditional pair."""
     z = bundle.sample_z(generator, n)
+    labels = bundle.sample_labels(generator, n)
     with torch.no_grad():
-        return bundle.generate(g, z, train=False), None
+        return bundle.generate(g, z, labels, train=False), labels
 
 
-def _result(xs, logits, accepted=None, aux=None) -> SampleResult:
+def _result(xs, logits, labels, accepted=None, aux=None) -> SampleResult:
     samples, logits = torch.cat(xs), torch.cat(logits)
     if accepted is None:
         accepted = torch.ones(samples.shape[0], dtype=torch.bool,
                               device=samples.device)
     else:
         accepted = torch.cat(accepted)
-    return SampleResult(samples, accepted, logits, None, aux or {})
+    labels = torch.cat(labels) if labels[0] is not None else None
+    return SampleResult(samples, accepted, logits, labels, aux or {})
 
 
 def _sample_standard(bundle, g, d, cfg, generator):
-    xs, logits = [], []
+    xs, logits, labels = [], [], []
     for _ in range(cfg.num_batches):
-        x, labels = _draw(bundle, g, generator, cfg.batch_size)
+        x, lab = _draw(bundle, g, generator, cfg.batch_size)
         with torch.no_grad():
-            logits.append(bundle.discriminate(d, x, labels, train=False))
+            logits.append(bundle.discriminate(d, x, lab, train=False))
         xs.append(x)
-    return _result(xs, logits)
+        labels.append(lab)
+    return _result(xs, logits, labels)
 
 
 def _sample_refinement(bundle, g, d, cfg, generator):
     draw_refine = make_draw_refine_fn(bundle, cfg)
-    xs, logits = [], []
+    xs, logits, labels = [], [], []
     for _ in range(cfg.num_batches):
-        x, _, lg = draw_refine(g, d, generator, cfg.batch_size)
+        x, lab, lg = draw_refine(g, d, generator, cfg.batch_size)
         xs.append(x)
         logits.append(lg)
-    return _result(xs, logits)
+        labels.append(lab)
+    return _result(xs, logits, labels)
 
 
 def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
     draw_refine = make_draw_refine_fn(bundle, cfg) if refine_first else None
+    per_class = _per_class_drs(bundle, cfg)
 
     def burn_sample(gen, n):
         if draw_refine is not None:
@@ -126,22 +150,28 @@ def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
             return x, labels
         return _draw(bundle, g, gen, n)
 
-    m = estimate_logit_max(bundle, d, burn_sample, generator, cfg.burn_in,
-                           cfg.batch_size)
-    xs, logits, accepted = [], [], []
+    if per_class:
+        m = estimate_logit_max_per_class(bundle, d, burn_sample, generator,
+                                         cfg.burn_in, cfg.batch_size)
+    else:
+        m = estimate_logit_max(bundle, d, burn_sample, generator,
+                               cfg.burn_in, cfg.batch_size)
+    xs, logits, labels, accepted = [], [], [], []
     for _ in range(cfg.num_batches):
         if draw_refine is not None:
-            x, labels, lg = draw_refine(g, d, generator, cfg.batch_size)
+            x, lab, lg = draw_refine(g, d, generator, cfg.batch_size)
         else:
-            x, labels = _draw(bundle, g, generator, cfg.batch_size)
+            x, lab = _draw(bundle, g, generator, cfg.batch_size)
             with torch.no_grad():
-                lg = bundle.discriminate(d, x, labels, train=False)
-        accepted.append(drs_accept_mask(generator, lg, m, cfg.gamma,
+                lg = bundle.discriminate(d, x, lab, train=False)
+        eff, eff_m = fold_per_class(lg, m, lab) if per_class else (lg, m)
+        accepted.append(drs_accept_mask(generator, eff, eff_m, cfg.gamma,
                                         cfg.eps_drs, cfg.gamma_percentile,
                                         use_pallas=cfg.use_pallas))
         xs.append(x)
         logits.append(lg)
-    return _result(xs, logits, accepted, {"logit_max": m})
+        labels.append(lab)
+    return _result(xs, logits, labels, accepted, {"logit_max": m})
 
 
 @torch.no_grad()
@@ -156,35 +186,41 @@ def _sample_mhgan(bundle, g, d, cfg, generator, data_fn):
     else:
         a = torch.ones((), device=bundle.device)
         b = torch.zeros((), device=bundle.device)
-    xs, logits, n_accs = [], [], []
+    xs, logits, labels, n_accs = [], [], [], []
     for _ in range(cfg.num_batches):
         if data_fn is not None:
-            x0, labels = data_fn(generator, cfg.batch_size)
+            x0, lab = data_fn(generator, cfg.batch_size)
         else:
-            x0, labels = _draw(bundle, g, generator, cfg.batch_size)
-        x, aux = mh(d, g, generator, x0, labels, a, b)
+            x0, lab = _draw(bundle, g, generator, cfg.batch_size)
+        x, aux = mh(d, g, generator, x0, lab, a, b)
         xs.append(x)
-        logits.append(bundle.discriminate(d, x, labels, train=False))
+        logits.append(bundle.discriminate(d, x, lab, train=False))
+        labels.append(lab)
         n_accs.append(aux["n_accepts"])
     # Real-data chain init: a chain that never accepted a G proposal still
     # holds its real initializer; mark it rejected. G-initialized chains
     # hold generator samples from the start, so all are accepted.
     accepted = [n > 0 for n in n_accs] if data_fn is not None else None
     n_acc = torch.cat(n_accs)
-    return _result(xs, logits, accepted, {
+    return _result(xs, logits, labels, accepted, {
         "mh_accept_rate": n_acc.mean() / cfg.mh_chain_len,
         "mh_never_accepted": (n_acc == 0).float().mean(),
         "platt_a": a, "platt_b": b})
 
 
-def _sample_collab(bundle, g, d, cfg, generator, data_fn):
+def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn):
     if data_fn is None:
         raise ValueError("collab sampling needs data_fn for D shaping")
+    balanced = (cond_data_fn is not None and bundle.conditional
+                and cfg.class_balanced_shaping)
+    per_class = _per_class_drs(bundle, cfg)
     draw_refine = make_draw_refine_fn(bundle, cfg)
-    shape_step = ShapingStep(bundle, cfg.shaping_lr, decay=cfg.shaping_decay,
-                             target=cfg.shaping_target,
-                             anchor=cfg.shaping_anchor,
-                             r1_gamma=cfg.shaping_r1_gamma)
+    shape_step = ShapingStep(
+        bundle, cfg.shaping_lr, decay=cfg.shaping_decay,
+        target=cfg.shaping_target, freeze_embed=cfg.shaping_freeze_embed,
+        anchor=cfg.shaping_anchor,
+        class_weight=cfg.shaping_class_weight and bundle.conditional,
+        r1_gamma=cfg.shaping_r1_gamma)
     anchor_params = ([p.detach().clone() for p in d.parameters()]
                      if cfg.shaping_anchor > 0 else None)
     state = shape_step.init(d)
@@ -194,31 +230,46 @@ def _sample_collab(bundle, g, d, cfg, generator, data_fn):
         x, labels, _ = draw_refine(g, state.d, gen, n)
         return x, labels
 
-    m = estimate_logit_max(bundle, state.d, burn_sample, generator,
-                           cfg.burn_in, cfg.batch_size)
-    xs, logits, accepted, shape_losses = [], [], [], []
+    if per_class:
+        m = estimate_logit_max_per_class(bundle, state.d, burn_sample,
+                                         generator, cfg.burn_in,
+                                         cfg.batch_size)
+    else:
+        m = estimate_logit_max(bundle, state.d, burn_sample, generator,
+                               cfg.burn_in, cfg.batch_size)
+    xs, logits, labels, accepted, shape_losses = [], [], [], [], []
     zero = torch.zeros((), device=bundle.device)
     for i in range(cfg.num_batches):
-        x, labels, lg = draw_refine(g, state.d, generator, cfg.batch_size)
-        if shaping_on:
-            # D's logit scale drifts while it is shaped: recalibrate M.
+        x, lab, lg = draw_refine(g, state.d, generator, cfg.batch_size)
+        # D's logit scale drifts while it is shaped: recalibrate M.
+        m_eff = m
+        if shaping_on and per_class:  # absent classes keep their M
+            rm = class_max(lg, lab, bundle.num_classes)
+            seen = torch.isfinite(rm)
+            m = torch.where(seen, 0.7 * m + 0.3 * rm, m)
+            m_eff = torch.where(seen, torch.maximum(m, rm), m)
+        elif shaping_on:
             m = 0.7 * m + 0.3 * lg.max()
             m_eff = torch.maximum(m, lg.max())
-        else:
-            m_eff = m
-        accepted.append(drs_accept_mask(generator, lg, m_eff, cfg.gamma,
+        eff, eff_m = (fold_per_class(lg, m_eff, lab) if per_class
+                      else (lg, m_eff))
+        accepted.append(drs_accept_mask(generator, eff, eff_m, cfg.gamma,
                                         cfg.eps_drs, cfg.gamma_percentile,
                                         use_pallas=cfg.use_pallas))
         loss = zero
         if shaping_on and i % cfg.shape_every == 0:
             for _ in range(cfg.shaping_steps):
-                x_real, labels_r = data_fn(generator, cfg.batch_size)
-                state, loss = shape_step(state, x_real, x, labels_r, labels,
+                if balanced:
+                    x_real, labels_r = cond_data_fn(generator, lab)
+                else:
+                    x_real, labels_r = data_fn(generator, cfg.batch_size)
+                state, loss = shape_step(state, x_real, x, labels_r, lab,
                                          anchor_params)
         shape_losses.append(loss)
         xs.append(x)
         logits.append(lg)
-    return _result(xs, logits, accepted, {
+        labels.append(lab)
+    return _result(xs, logits, labels, accepted, {
         "logit_max": m, "shape_losses": torch.stack(shape_losses),
         "shaped_d": state.d.eval(), "shaping_steps_done": state.step})
 

@@ -4,6 +4,10 @@ Counterpart of ``collaborative_gan_sampling_tpu/sampling/rejection.py``. With
 F the D logit and M the burn-in estimate of max F, the acceptance probability
 is sigmoid(F_hat) with F_hat = F - M - log(1 - exp(F - M - eps)) - gamma.
 The accepted set is a boolean mask of the batch's shape.
+
+Per-class DRS (conditional models) estimates one M per class and folds it
+into the logits: the shift depends only on F - M, so ``logits - M[labels]``
+with M = 0 is exact (``fold_per_class``).
 """
 
 from __future__ import annotations
@@ -68,3 +72,33 @@ def estimate_logit_max(bundle, d, sample_fn: Callable,
             logits = bundle.discriminate(d, x, labels, train=False)
         m = torch.maximum(m, logits.max())
     return m
+
+
+def estimate_logit_max_per_class(bundle, d, sample_fn: Callable,
+                                 generator: torch.Generator | None,
+                                 burn_in: int, batch_size: int) -> torch.Tensor:
+    """Per-class burn-in estimate M_c = max over the drawn samples of class
+    c, shape (bundle.num_classes,), by a scatter-max; a class never drawn
+    takes the global max."""
+    num_classes = bundle.num_classes
+    m = torch.full((num_classes,), float("-inf"), device=bundle.device)
+    for _ in range(max(1, burn_in // batch_size)):
+        x, labels = sample_fn(generator, batch_size)
+        with torch.no_grad():
+            logits = bundle.discriminate(d, x, labels, train=False)
+        m = torch.maximum(m, class_max(logits, labels, num_classes))
+    return torch.where(torch.isfinite(m), m, m.max())
+
+
+def class_max(logits: torch.Tensor, labels: torch.Tensor,
+              num_classes: int) -> torch.Tensor:
+    """max logit of each class in one batch, -inf for a class not in it."""
+    m = torch.full((num_classes,), float("-inf"), device=logits.device)
+    return m.scatter_reduce(0, labels, logits, "amax")
+
+
+def fold_per_class(logits: torch.Tensor, m: torch.Tensor,
+                   labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logits - M[labels], 0): the DRS inputs of per-class M with the
+    global M's entry, a 0-d zero made on the device."""
+    return logits - m[labels], torch.zeros((), device=logits.device)

@@ -17,9 +17,10 @@ Methods, the serving view of collab sampling:
                  before serving (``sample(..., method="collab")`` returns the
                  shaped D in ``aux['shaped_d']``); requests never change D.
 
-Class-conditional serving (``class_id``, per-class DRS) waits for the
-class-conditional models, which are not ported yet. MH-GAN is not offered,
-as in the JAX package.
+A conditional pair serves random labels, or with ``class_id`` that one
+class for every sample (targeted serving); with ``per_class_drs`` M is one
+per class and folds into the logits. MH-GAN is not offered, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from collaborative_gan_sampling_torch.sampling.refine import (
 from collaborative_gan_sampling_torch.sampling.rejection import (
     drs_accept_mask,
     estimate_logit_max,
+    estimate_logit_max_per_class,
+    fold_per_class,
 )
 
 SERVING_METHODS = ("standard", "refinement", "reject", "collab")
@@ -57,27 +60,43 @@ class ServingSampler:
         if method not in SERVING_METHODS:
             raise ValueError(
                 f"serving supports {SERVING_METHODS}, not {method!r}")
-        if class_id is not None:
-            raise NotImplementedError(
-                "class-conditional serving (class_id) is not ported yet")
+        if class_id is not None and not bundle.conditional:
+            raise ValueError("class_id needs a conditional model")
+        if class_id is not None and not 0 <= class_id < bundle.num_classes:
+            raise ValueError(
+                f"class_id {class_id} out of range [0, {bundle.num_classes})")
         self.bundle, self.cfg, self.method = bundle, cfg, method
+        self.class_id = class_id
         self._refine_on = method in ("refinement", "collab")
         self._reject_on = method in ("reject", "collab")
+        self._per_class = cfg.per_class_drs and bundle.conditional
         self._draw_refine = (make_draw_refine_fn(bundle, cfg)
                              if self._refine_on else None)
 
+    def _labels_for(self, generator, n: int) -> torch.Tensor | None:
+        """Every sample ``class_id``, or random labels (None when
+        unconditional)."""
+        if self.class_id is not None:
+            return torch.full((n,), self.class_id, dtype=torch.int64,
+                              device=self.bundle.device)
+        return self.bundle.sample_labels(generator, n)
+
     def _draw_score(self, g, d, generator, n: int):
-        """One candidate batch and its final logits (refined when on)."""
+        """One candidate batch, its labels and its final logits (refined
+        when on)."""
+        labels = self._labels_for(generator, n)
         if self._refine_on:
-            return self._draw_refine(g, d, generator, n)
+            return self._draw_refine(g, d, generator, n, labels=labels)
         z = self.bundle.sample_z(generator, n)
         with torch.no_grad():
-            x = self.bundle.generate(g, z, train=False)
-            return x, None, self.bundle.discriminate(d, x, train=False)
+            x = self.bundle.generate(g, z, labels, train=False)
+            return x, labels, self.bundle.discriminate(d, x, labels,
+                                                       train=False)
 
     def calibrate(self, g, d, generator: torch.Generator | None
                   ) -> torch.Tensor:
-        """Burn-in DRS calibration M (a 0-d 0.0 for accept-all methods)."""
+        """Burn-in DRS calibration M: a 0-d tensor, or with per-class DRS
+        one per class (a 0-d 0.0 for accept-all methods)."""
         if not self._reject_on:
             return torch.zeros((), device=self.bundle.device)
 
@@ -85,46 +104,57 @@ class ServingSampler:
             x, labels, _ = self._draw_score(g, d, gen, n)
             return x, labels
 
+        if self._per_class:
+            return estimate_logit_max_per_class(
+                self.bundle, d, burn, generator, self.cfg.burn_in,
+                self.cfg.batch_size)
         return estimate_logit_max(self.bundle, d, burn, generator,
                                   self.cfg.burn_in, self.cfg.batch_size)
 
     def round(self, g, d, m: torch.Tensor,
               generator: torch.Generator | None):
-        """One serving round: (samples, None, accept, logits) with
-        ``num_batches * batch_size`` candidates, all on the device."""
+        """One serving round: (samples, labels or None, accept, logits)
+        with ``num_batches * batch_size`` candidates, all on the device."""
         cfg = self.cfg
-        xs, accs, logits = [], [], []
+        xs, labels, accs, logits = [], [], [], []
         for _ in range(cfg.num_batches):
-            x, _, lg = self._draw_score(g, d, generator, cfg.batch_size)
+            x, lab, lg = self._draw_score(g, d, generator, cfg.batch_size)
             if self._reject_on:
-                acc = drs_accept_mask(generator, lg, m, cfg.gamma,
+                eff, eff_m = (fold_per_class(lg, m, lab) if self._per_class
+                              else (lg, m))
+                acc = drs_accept_mask(generator, eff, eff_m, cfg.gamma,
                                       cfg.eps_drs, cfg.gamma_percentile,
                                       use_pallas=cfg.use_pallas)
             else:
                 acc = torch.ones(lg.shape, dtype=torch.bool, device=lg.device)
             xs.append(x)
+            labels.append(lab)
             accs.append(acc)
             logits.append(lg)
-        return torch.cat(xs), None, torch.cat(accs), torch.cat(logits)
+        labels = torch.cat(labels) if self.bundle.conditional else None
+        return torch.cat(xs), labels, torch.cat(accs), torch.cat(logits)
 
     @staticmethod
-    def compact(x: torch.Tensor, acc: torch.Tensor, cap: int,
-                quantize: bool) -> tuple[torch.Tensor, int]:
-        """The first ``cap`` accepted rows, gathered on the device (uint8 by
-        ``denormalize_images`` when ``quantize``) and then fetched to the
-        host, so the transfer is O(accepted), not O(candidates). Returns
-        (rows, count)."""
+    def compact(x: torch.Tensor, labels: torch.Tensor | None,
+                acc: torch.Tensor, cap: int, quantize: bool
+                ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
+        """The first ``cap`` accepted rows and their labels, gathered on the
+        device (uint8 by ``denormalize_images`` when ``quantize``) and then
+        fetched to the host, so the transfer is O(accepted), not
+        O(candidates). Returns (rows, labels or None, count)."""
         idx = torch.nonzero(acc)[:cap, 0]
         x_sel = x[idx]
         if quantize:
             x_sel = denormalize_images(x_sel)
-        return x_sel.cpu(), int(idx.shape[0])
+        lab = labels[idx].cpu() if labels is not None else None
+        return x_sel.cpu(), lab, int(idx.shape[0])
 
     def generate(self, g, d, generator: torch.Generator | None, n: int,
                  max_rounds: int = 1000, quantize_images: bool = True):
         """Run rounds until >= n samples are accepted.
 
-        Returns (samples[n] on the host, None, stats). Image samples come
+        Returns (samples[n] on the host, their labels or None, stats).
+        Image samples come
         back uint8 in [0, 255] by default (quantized on the device, before
         the fetch); 2D samples stay float32. The first round, which also
         builds the kernels and sizes the compaction buffer, keeps its
@@ -132,24 +162,25 @@ class ServingSampler:
         quantize = quantize_images and len(self.bundle.data_shape) == 3
         m = self.calibrate(g, d, generator)
         per_round = self.cfg.num_batches * self.cfg.batch_size
-        x0, _, acc0, _ = self.round(g, d, m, generator)
+        x0, lab0, acc0, _ = self.round(g, d, m, generator)
         rate0 = float(acc0.float().mean())
         # 30% headroom; a round that overflows contributes `cap` samples
         # (the first k of an iid accepted set are still unbiased).
         cap = min(per_round, max(64, int(per_round * (1.3 * rate0 + 0.05))))
 
-        xs, total, rounds, overflow = [], 0, 0, 0
+        xs, labs, total, rounds, overflow = [], [], 0, 0, 0
 
-        def take(x, acc):
+        def take(x, labels, acc):
             nonlocal total, rounds, overflow
-            x_sel, k = self.compact(x, acc, cap, quantize)
+            x_sel, lab_sel, k = self.compact(x, labels, acc, cap, quantize)
             overflow += int(acc.sum()) - k
             xs.append(x_sel)
+            labs.append(lab_sel)
             total += k
             rounds += 1
             return k
 
-        warm = take(x0, acc0)
+        warm = take(x0, lab0, acc0)
         timed = 0
         t0 = time.perf_counter()
         while total < n:
@@ -157,11 +188,12 @@ class ServingSampler:
                 raise RuntimeError(
                     f"generate: {total}/{n} accepted after {rounds} rounds "
                     f"(accept rate too low - relax gamma/gamma_percentile)")
-            x, _, acc, _ = self.round(g, d, m, generator)
-            timed += take(x, acc)
+            x, labels, acc, _ = self.round(g, d, m, generator)
+            timed += take(x, labels, acc)
         dt = time.perf_counter() - t0
 
         samples = torch.cat(xs)[:n]
+        labels = torch.cat(labs)[:n] if self.bundle.conditional else None
         stats = {
             "n": int(n),
             "rounds": rounds,
@@ -176,4 +208,4 @@ class ServingSampler:
             "dtype": "uint8" if quantize else "float32",
             "method": self.method,
         }
-        return samples, None, stats
+        return samples, labels, stats

@@ -19,8 +19,9 @@ the port restores the buffers it had before the forward:
 
 Randomness. Every draw goes through ``TrainDraws``, keyed as in the JAX
 chunk: the D update of index ``step * d_steps + i`` (and the FusedProp
-update of index ``step``) takes a real batch and z from its "data" stream,
-the G update of index ``step * g_steps + i`` takes z from its "z" stream.
+update of index ``step``) takes a real batch (with its labels), z and, for
+a conditional pair, fake labels from its "data" stream; the G update of
+index ``step * g_steps + i`` takes z and fake labels from its "z" stream.
 Parity tests replace it with arrays that JAX drew from its own keys.
 """
 
@@ -127,8 +128,9 @@ def create_train_state(bundle, cfg: TrainConfig, seed: int) -> TrainState:
 class TrainDraws:
     """The train chunk's random draws, each from the stream of (seed, update
     index, role) on the bundle's device: ``d_batch(index)`` gives (real
-    batch, z) for a D or FusedProp update, ``g_z(index)`` z for a G
-    update."""
+    batch, its labels, z, fake labels) for a D or FusedProp update,
+    ``g_batch(index)`` (z, fake labels) for a G update; labels are None
+    for an unconditional pair."""
 
     def __init__(self, bundle, data_fn: DataFn, seed: int, batch_size: int):
         self.bundle, self.data_fn = bundle, data_fn
@@ -141,13 +143,17 @@ class TrainDraws:
         self._generator.manual_seed(step_seed(self.seed, index, role))
         return self._generator
 
-    def d_batch(self, index: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def d_batch(self, index: int):
         gen = self._gen(index, "data")
-        x_real, _ = self.data_fn(gen, self.batch_size)
-        return x_real, self.bundle.sample_z(gen, self.batch_size)
+        x_real, labels_r = self.data_fn(gen, self.batch_size)
+        z = self.bundle.sample_z(gen, self.batch_size)
+        return x_real, labels_r, z, self.bundle.sample_labels(
+            gen, self.batch_size)
 
-    def g_z(self, index: int) -> torch.Tensor:
-        return self.bundle.sample_z(self._gen(index, "z"), self.batch_size)
+    def g_batch(self, index: int):
+        gen = self._gen(index, "z")
+        z = self.bundle.sample_z(gen, self.batch_size)
+        return z, self.bundle.sample_labels(gen, self.batch_size)
 
 
 @contextlib.contextmanager
@@ -182,14 +188,15 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
     n_steps = steps_per_call or cfg.steps_per_call
     draws = draws or TrainDraws(bundle, data_fn, seed, cfg.batch_size)
 
-    def d_update(state: TrainState, x_real, z) -> dict:
+    def d_update(state: TrainState, x_real, labels_r, z, labels_f) -> dict:
         params = list(state.d.parameters())
         # G in train mode (batch statistics); its statistics advance only
         # in the G update.
         with torch.no_grad(), _stats_kept(state.g):
-            x_fake = bundle.generate(state.g, z, train=True)
-        lr_real, r1 = real_pass(bundle, state.d, x_real, None, cfg.r1_gamma)
-        lr_fake = bundle.discriminate(state.d, x_fake, train=True)
+            x_fake = bundle.generate(state.g, z, labels_f, train=True)
+        lr_real, r1 = real_pass(bundle, state.d, x_real, labels_r,
+                                cfg.r1_gamma)
+        lr_fake = bundle.discriminate(state.d, x_fake, labels_f, train=True)
         loss = nonsaturating_d_loss(lr_real, lr_fake)
         if r1 is not None:
             loss = loss + 0.5 * cfg.r1_gamma * r1
@@ -200,31 +207,32 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
             metrics["r1"] = r1.detach()
         return metrics
 
-    def g_update(state: TrainState, z) -> dict:
+    def g_update(state: TrainState, z, labels) -> dict:
         params = list(state.g.parameters())
         # D in train mode (batch statistics), its statistics discarded.
         with _stats_kept(state.d):
-            x_fake = bundle.generate(state.g, z, train=True)
-            logits = bundle.discriminate(state.d, x_fake, train=True)
+            x_fake = bundle.generate(state.g, z, labels, train=True)
+            logits = bundle.discriminate(state.d, x_fake, labels, train=True)
         loss = nonsaturating_g_loss(logits)
         _apply(state.g_opt, params, torch.autograd.grad(loss, params))
         return {"g_loss": loss.detach()}
 
-    def fused_update(state: TrainState, x_real, z) -> dict:
+    def fused_update(state: TrainState, x_real, labels_r, z,
+                     labels_f) -> dict:
         """FusedProp (arXiv:2004.03335): one G forward and one D forward on
         the fake batch serve both updates, through the cotangents of the D
         loss, sigmoid(l) / B, and of the G loss, -sigmoid(-l) / B; D and G
         step at once, from the same z."""
         g_params = list(state.g.parameters())
         d_params = list(state.d.parameters())
-        x_fake = bundle.generate(state.g, z, train=True)
-        lr, r1 = real_pass(bundle, state.d, x_real, None, cfg.r1_gamma)
+        x_fake = bundle.generate(state.g, z, labels_f, train=True)
+        lr, r1 = real_pass(bundle, state.d, x_real, labels_r, cfg.r1_gamma)
         loss_real = F.softplus(-lr).mean()
         if r1 is not None:
             loss_real = loss_real + 0.5 * cfg.r1_gamma * r1
         d_grads_real = torch.autograd.grad(loss_real, d_params)
         # The fake pass's statistics go on top of the real pass's.
-        lf = bundle.discriminate(state.d, x_fake, train=True)
+        lf = bundle.discriminate(state.d, x_fake, labels_f, train=True)
         lf_ = lf.detach()
         inv_b = 1.0 / lf.shape[0]
         # The D cotangent goes to D's params only, never into G.
@@ -265,7 +273,7 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
             # With g_steps > 1 the last G update's g_loss is kept.
             for i in range(cfg.g_steps):
                 metrics.update(g_update(
-                    state, draws.g_z(state.step * cfg.g_steps + i)))
+                    state, *draws.g_batch(state.step * cfg.g_steps + i)))
         state.step += 1
         if state.g_ema is not None:
             update_ema(state)

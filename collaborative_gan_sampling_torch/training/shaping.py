@@ -2,10 +2,7 @@
 
 Counterpart of ``collaborative_gan_sampling_tpu/training/shaping.py``. D is
 fine-tuned on (real, refined) batches with the non-saturating D loss and its
-own Adam (b1 = 0.5, eps 1e-8) at ``shaping_lr``; G stays frozen. The JAX
-options that act only on class-conditional models (``freeze_embed``,
-``class_weight``) are not ported yet; on an unconditional model they change
-nothing.
+own Adam (b1 = 0.5, eps 1e-8) at ``shaping_lr``; G stays frozen.
 """
 
 from __future__ import annotations
@@ -14,6 +11,7 @@ import copy
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from collaborative_gan_sampling_torch.training.gan import (
@@ -29,6 +27,16 @@ class ShapingState:
     step: int = 0  # updates applied
 
 
+def class_weights(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Per-sample inverse-frequency weights with mean 1 over the classes
+    present: a class with cnt of the B samples, among C_present classes,
+    weighs B / (C_present * cnt); a balanced batch weighs all ones."""
+    cnt = torch.bincount(labels, minlength=num_classes).float()
+    present = (cnt > 0).sum().clamp_min(1)
+    w = torch.where(cnt > 0, 1.0 / cnt.clamp_min(1.0), 0.0)[labels]
+    return w * (labels.shape[0] / present)
+
+
 class ShapingStep:
     """``step(state, x_real, x_refined) -> (state, d_loss)``: one D update on
     a (real, refined) pair; ``init(d)`` makes the matching state.
@@ -40,13 +48,21 @@ class ShapingStep:
     * ``anchor`` > 0: adds 0.5 * anchor * ||p - p_anchor||^2 (L2-SP) over
       all D params.
     * ``r1_gamma`` > 0: adds 0.5 * r1_gamma * E||grad_x D(x_real)||^2.
+    * ``freeze_embed``: the gradients of every parameter whose name holds
+      "embed" (the projection D's ``proj_embed``) are set to zero, after
+      the anchor and R1 terms; Adam still steps them, as optax does.
+    * ``class_weight``: with both label sets given, each term of the loss
+      is the mean of ``class_weights`` times the per-sample loss, so each
+      class present weighs the same.
     """
 
     def __init__(self, bundle, lr: float, decay: float = 1.0,
                  target: float = 0.0, anchor: float = 0.0,
-                 r1_gamma: float = 0.0):
+                 r1_gamma: float = 0.0, freeze_embed: bool = False,
+                 class_weight: bool = False):
         self.bundle, self.lr, self.decay = bundle, lr, decay
         self.target, self.anchor, self.r1_gamma = target, anchor, r1_gamma
+        self.freeze_embed, self.class_weight = freeze_embed, class_weight
 
     def init(self, d: nn.Module) -> ShapingState:
         d = copy.deepcopy(d)
@@ -64,7 +80,14 @@ class ShapingStep:
         lr_real, r1 = real_pass(bundle, d, x_real, labels_r, self.r1_gamma)
         lr_fake = bundle.discriminate(d, x_refined.detach(), labels_f,
                                       train=True)
-        loss = nonsaturating_d_loss(lr_real, lr_fake)
+        if (self.class_weight and labels_r is not None
+                and labels_f is not None):
+            w_r = class_weights(labels_r, bundle.num_classes)
+            w_f = class_weights(labels_f, bundle.num_classes)
+            loss = ((w_r * F.softplus(-lr_real)).mean()
+                    + (w_f * F.softplus(lr_fake)).mean())
+        else:
+            loss = nonsaturating_d_loss(lr_real, lr_fake)
         if self.anchor > 0 and anchor_params is not None:
             sq = sum(torch.sum(torch.square(p.float() - p0.float()))
                      for p, p0 in zip(d.parameters(), anchor_params))
@@ -80,6 +103,10 @@ class ShapingStep:
                 return state, loss.detach()
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.freeze_embed:
+            for name, p in d.named_parameters():
+                if "embed" in name.lower():
+                    p.grad = torch.zeros_like(p)
         for group in state.opt.param_groups:
             group["lr"] = self.lr * self.decay ** state.step
         state.opt.step()

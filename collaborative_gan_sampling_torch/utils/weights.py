@@ -14,6 +14,7 @@ Conv                   kernel (kh, kw, in, out)  weight (out, in, kh, kw);
 ConvTranspose (SAME)   kernel (kh, kw, in, out)  weight (in, out, kh, kw),
                                                  spatially flipped
 BatchNorm              scale, bias; mean, var    weight, bias; running_*
+Embed                  embedding (num, features) embedding, as it is
 =====================  ========================  ===========================
 
 Adam's state goes the same way: optax's ``ScaleByAdamState(count, mu,
@@ -32,6 +33,7 @@ from torch import nn
 
 from collaborative_gan_sampling_torch.ops.nn import (
     Dense,
+    Embed,
     FlaxBatchNorm,
     FlaxConv,
     SameConv2d,
@@ -40,7 +42,8 @@ from collaborative_gan_sampling_torch.ops.nn import (
 
 # The layers that hold Flax params; any other submodule is a container
 # whose children are looked up one level down in the Flax tree.
-_LAYERS = (Dense, FlaxBatchNorm, FlaxConv, SameConv2d, SameConvTranspose2d)
+_LAYERS = (Dense, Embed, FlaxBatchNorm, FlaxConv, SameConv2d,
+           SameConvTranspose2d)
 
 
 def _layers(module: nn.Module, path: tuple[str, ...] = ()):
@@ -65,6 +68,8 @@ def _put(tree: dict, path: tuple[str, ...], value: Any) -> None:
 
 
 def _to_torch(layer: nn.Module, p: dict) -> dict[str, np.ndarray]:
+    if isinstance(layer, Embed):
+        return {"embedding": np.asarray(p["embedding"])}
     if isinstance(layer, Dense):
         return {"weight": np.asarray(p["kernel"]).T,
                 "bias": np.asarray(p["bias"])}
@@ -85,7 +90,10 @@ def _to_torch(layer: nn.Module, p: dict) -> dict[str, np.ndarray]:
 def _to_flax(layer: nn.Module, w: np.ndarray, b: np.ndarray | None
              ) -> dict[str, np.ndarray]:
     """Flax arrays of one layer's (weight, bias)-shaped pair: its params,
-    or Adam's moments of them (``b`` None for a bias-free conv)."""
+    or Adam's moments of them (``b`` None for a bias-free conv or an
+    embedding)."""
+    if isinstance(layer, Embed):
+        return {"embedding": w}
     if isinstance(layer, Dense):
         return {"kernel": w.T.copy(), "bias": b}
     if isinstance(layer, (SameConv2d, FlaxConv)):
@@ -111,8 +119,11 @@ def params_to_flax(module: nn.Module, of=lambda p: p) -> dict[str, dict]:
     parameters p (e.g. an optimizer's moment of p), as numpy arrays."""
     out: dict = {}
     for path, layer in _layers(module):
-        bias = None if layer.bias is None else _numpy(of(layer.bias))
-        _put(out, path, _to_flax(layer, _numpy(of(layer.weight)), bias))
+        weight = (layer.embedding if isinstance(layer, Embed)
+                  else layer.weight)
+        bias = getattr(layer, "bias", None)
+        bias = None if bias is None else _numpy(of(bias))
+        _put(out, path, _to_flax(layer, _numpy(of(weight)), bias))
     return out
 
 

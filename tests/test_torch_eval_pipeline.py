@@ -72,8 +72,15 @@ def test_evaluate_images(trained):
     assert exp.fid_of_samples(none.samples, none.accepted) == float("inf")
     assert exp.kid(none) == {"kid": float("inf"), "kid_std": 0.0}
     assert exp.precision_recall(none) == {"precision": 0.0, "recall": 0.0}
-    with pytest.raises(NotImplementedError, match="intra_fid"):
-        exp.intra_fid(res)
+    # Intra-FID of the pool with labels given: no class reaches the
+    # preset's 32 samples on both sides, so none is scored (inf, 0), as
+    # the JAX package's per_class_fid; an empty pool is inf likewise.
+    labelled = res._replace(labels=torch.zeros_like(res.accepted,
+                                                    dtype=torch.int64))
+    assert exp.intra_fid(labelled) == {"intra_fid": float("inf"),
+                                       "intra_fid_classes": 0}
+    assert exp.intra_fid(none._replace(labels=labelled.labels)) == {
+        "intra_fid": float("inf"), "intra_fid_classes": 0.0}
 
 
 def test_fid_matches_jax_experiment(tmp_path):

@@ -125,9 +125,10 @@ def test_generate_collab_persists_and_reuses_the_shaped_d(tmp_path):
 
 
 def test_image_experiment_samples_and_refuses_fid(tmp_path):
-    """Image sampling is scored by FID; the FID the port does not have yet
-    (intra-FID, with the class-conditional models) and export are
-    refused."""
+    """Image sampling is scored by FID; intra-FID of an unconditional
+    model's pool, which has no labels, is refused with a clear error
+    (tests/test_torch_conditional_pipeline.py scores labelled pools), and
+    export, not ported yet, is refused."""
     exp = _exp(_cfg(tmp_path, "mnist", (
         "model.compute_dtype=float32", "eval.fid_num_samples=32",
         "eval.fid_batch_size=16", "eval.feature_train_steps=2")))
@@ -138,7 +139,8 @@ def test_image_experiment_samples_and_refuses_fid(tmp_path):
     out = exp.evaluate(res)
     assert np.isfinite(out["fid"]) and out["fid"] > 0
     assert out["feature_net"] == "torch/trained_classifier"
-    with pytest.raises(NotImplementedError, match="intra_fid"):
+    assert res.labels is None
+    with pytest.raises(ValueError, match="intra_fid needs the pool's labels"):
         exp.intra_fid(res)
     with pytest.raises(NotImplementedError, match="export"):
         exp.export(state, "x")

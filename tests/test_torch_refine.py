@@ -143,8 +143,29 @@ def test_draw_refine_matches(tiny_pair, monkeypatch):
     np.testing.assert_allclose(lg_got.numpy(), np.asarray(lg_want), atol=ATOL)
 
 
-def test_latent_space_not_ported(tiny_pair):
-    _, tb, _, _, _, _ = tiny_pair
-    with pytest.raises(NotImplementedError):
+def test_latent_space_not_ported(monkeypatch):
+    """Latent-space refinement, ported: with K = 0 it is the plain draw
+    G(z) and its logits, with K = 2 it moves x off G(z0) toward higher D
+    scores (the parity with JAX's _make_draw_refine_z is
+    tests/test_torch_refine_z.py's); another space is refused."""
+    from tests.test_torch_refine_z import sensitive
+
+    jb, tb, _, _, g, d = sensitive(make_pair(TINY, seed=21), 200)
+    z = np.random.default_rng(3).standard_normal((4, jb.z_dim)).astype(
+        np.float32)
+    monkeypatch.setattr(type(tb), "sample_z",
+                        lambda self, generator, n: torch.from_numpy(z))
+    with torch.no_grad():
+        x0 = tb.generate(g, torch.from_numpy(z))
+        lg0 = tb.discriminate(d, x0)
+    x, labels, lg = t_make_draw_refine_fn(tb, TRefineConfig(
+        space="z", steps=0))(g, d, None, 4)
+    assert labels is None
+    assert torch.equal(x, x0) and torch.equal(lg, lg0)
+    x, _, lg = t_make_draw_refine_fn(tb, TRefineConfig(
+        space="z", steps=2, rate=5.0))(g, d, None, 4)
+    assert float((x - x0).abs().amax(dim=(1, 2, 3)).min()) > 1e-4
+    assert float(lg.mean()) > float(lg0.mean())  # toward higher D scores
+    with pytest.raises(ValueError, match="'x' or 'z'"):
         t_make_draw_refine_fn(tb, dataclasses.replace(TRefineConfig(),
-                                                      space="z"))
+                                                      space="w"))

@@ -107,15 +107,19 @@ def test_compact_quantization_rounds_like_denormalize():
     x = torch.stack([torch.full((2, 2, 1), v) for v in
                      (0.0, -1.0, 1.0, 0.5, -0.25, 0.999)])
     acc = torch.tensor([True, True, True, True, False, False])
-    x_sel, count = TServingSampler.compact(x, acc, cap=4, quantize=True)
-    assert count == 4 and x_sel.shape == (4, 2, 2, 1)
+    x_sel, lab, count = TServingSampler.compact(x, None, acc, cap=4,
+                                                quantize=True)
+    assert count == 4 and x_sel.shape == (4, 2, 2, 1) and lab is None
     np.testing.assert_array_equal(
         x_sel.numpy(), np.asarray(jax_denormalize_images(jnp.asarray(
             x[:4].numpy()))))
     assert int(x_sel[0, 0, 0, 0]) == 128  # round, not truncate
-    # cap below the accepted count keeps the first `cap` accepted rows
-    x_sel, count = TServingSampler.compact(x, acc, cap=2, quantize=False)
+    # cap below the accepted count keeps the first `cap` accepted rows,
+    # and their labels
+    x_sel, lab, count = TServingSampler.compact(
+        x, torch.arange(6) * 10, acc, cap=2, quantize=False)
     assert count == 2 and torch.equal(x_sel, x[:2])
+    assert lab.tolist() == [0, 10]
 
 
 def test_denormalize_matches_jax():
@@ -146,7 +150,17 @@ def test_serving_rejects_unknown_method(pair):
 
 
 def test_class_conditional_serving_not_ported(pair):
-    with pytest.raises(NotImplementedError):
+    """Class-conditional serving, ported: a conditional pair served with
+    class_id gives samples of that class only, with their labels; class_id
+    on the unconditional pair is refused."""
+    from tests.test_torch_conditional import make_cond_pair
+
+    _, tb, _, _, g, d = make_cond_pair(seed=42)
+    srv = TServingSampler(tb, _cfg(num_batches=1, batch_size=16, burn_in=16),
+                          method="reject", class_id=0)
+    x, labels, _ = srv.generate(g, d, torch.Generator().manual_seed(2), n=24)
+    assert x.shape == (24, 16, 16, 3) and labels.tolist() == [0] * 24
+    with pytest.raises(ValueError, match="needs a conditional model"):
         TServingSampler(pair[1], TRefineConfig(), class_id=0)
 
 

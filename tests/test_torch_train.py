@@ -77,9 +77,15 @@ TINY_BF16 = dict(TINY, compute_dtype="bfloat16")
 
 
 def jax_data_fn(jb):
+    """Uniform real batches; with labels drawn beside them for a
+    conditional bundle."""
     def data_fn(key, n):
-        return jax.random.uniform(key, (n, *jb.data_shape), minval=-1.0,
-                                  maxval=1.0), None
+        if not jb.conditional:
+            return jax.random.uniform(key, (n, *jb.data_shape), minval=-1.0,
+                                      maxval=1.0), None
+        k_x, k_l = jax.random.split(key)
+        return (jax.random.uniform(k_x, (n, *jb.data_shape), minval=-1.0,
+                                   maxval=1.0), jb.sample_labels(k_l, n))
     return data_fn
 
 
@@ -92,15 +98,26 @@ class JaxDraws(TrainDraws):
                                                         base_key, batch)
 
     def d_batch(self, index):
-        k_data, k_z, _ = jax.random.split(step_key(self.base, index, "data"),
-                                          3)
-        x, _ = self.data_fn(k_data, self.batch)
+        k_data, k_z, k_lab = jax.random.split(
+            step_key(self.base, index, "data"), 3)
+        x, labels_r = self.data_fn(k_data, self.batch)
         z = self.jb.sample_z(k_z, self.batch)
-        return (torch.from_numpy(np.array(x)), torch.from_numpy(np.array(z)))
+        return (_torch(x), _torch(labels_r), _torch(z),
+                _torch(self.jb.sample_labels(k_lab, self.batch)))
 
-    def g_z(self, index):
-        k_z, _ = jax.random.split(step_key(self.base, index, "z"))
-        return torch.from_numpy(np.array(self.jb.sample_z(k_z, self.batch)))
+    def g_batch(self, index):
+        k_z, k_lab = jax.random.split(step_key(self.base, index, "z"))
+        return (_torch(self.jb.sample_z(k_z, self.batch)),
+                _torch(self.jb.sample_labels(k_lab, self.batch)))
+
+
+def _torch(a):
+    """A JAX array as a torch tensor (integer labels as int64), None as
+    None."""
+    if a is None:
+        return None
+    a = np.array(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype.kind == "i" else a)
 
 
 def jax_state(g_vars, d_vars, cfg):
@@ -115,11 +132,12 @@ def jax_state(g_vars, d_vars, cfg):
                        step=jnp.zeros((), jnp.int32), g_ema=ema)
 
 
-def run_both(model_kw, train_kw, seed=0, port=True):
+def run_both(model_kw, train_kw, seed=0, port=True, pair=make_pair):
     """One chunk of ``steps_per_call`` iterations in each package from the
-    same weights and draws: (JAX state, JAX metrics, port state, port
-    metrics, the port's config); with ``port=False`` JAX's only."""
-    jb, tb, g_vars, d_vars, g, d = make_pair(model_kw, seed=seed)
+    same weights (``pair``'s) and draws: (JAX state, JAX metrics, port
+    state, port metrics, the port's config); with ``port=False`` JAX's
+    only."""
+    jb, tb, g_vars, d_vars, g, d = pair(model_kw, seed=seed)
     kw = dict(batch_size=BATCH, d_lr=LR, g_lr=LR, beta1=0.5, **train_kw)
     jcfg, tcfg = JTrainConfig(**kw), TTrainConfig(**kw)
     base = jax.random.PRNGKey(seed + 100)
@@ -334,13 +352,13 @@ def test_draws_are_keyed_by_seed_index_and_role():
         return torch.randn((n, 2), generator=gen), None
 
     draws = TrainDraws(tb, data_fn, seed=1, batch_size=4)
-    x0, z0 = draws.d_batch(7)
-    x1, z1 = TrainDraws(tb, data_fn, seed=1, batch_size=4).d_batch(7)
+    x0, _, z0, _ = draws.d_batch(7)
+    x1, _, z1, _ = TrainDraws(tb, data_fn, seed=1, batch_size=4).d_batch(7)
     assert torch.equal(x0, x1) and torch.equal(z0, z1)
-    assert not torch.equal(draws.d_batch(8)[1], z0)
-    assert not torch.equal(draws.g_z(7), z0)
-    assert not torch.equal(TrainDraws(tb, data_fn, 2, 4).g_z(7),
-                           draws.g_z(7))
+    assert not torch.equal(draws.d_batch(8)[2], z0)
+    assert not torch.equal(draws.g_batch(7)[0], z0)
+    assert not torch.equal(TrainDraws(tb, data_fn, 2, 4).g_batch(7)[0],
+                           draws.g_batch(7)[0])
     # The documented mix of (seed, role, step), fixed across versions.
     assert step_seed(1, 7, "data") == int.from_bytes(
         hashlib.sha256(b"1:0:7").digest()[:8], "little")
