@@ -101,6 +101,29 @@ Phases, each of which raises (and exits non-zero) on failure:
              pool over its 10 most frequent classes (at least 5 counted,
              finite).
 
+5f. files, tuning and the benchmark matrix - run after 5c: five CIFAR-10
+             pickles of 2,000 images (the port's procedural cifar10 images,
+             in the dataset's own format) written and loaded through
+             ``load_image_dataset`` bit for bit on the card;
+             ``center_crop_resize`` on the card against the CPU over 512
+             CelebA-size images (218x178, crop 108 -> 64) and the CIFAR
+             override 32 -> 28 (float32 within 1e-4, uint8 at most 1 apart
+             on at most 0.1%), and the folder loader where PIL is
+             installed; the cifar10 preset at full width (DCGAN 32x32x3,
+             64/64 filters, z = 100, batch 256, bf16) through the CLI in
+             this process: ``train`` (200 of 20,000 iterations), ``tune``
+             over K 5, 10 and rates 0.01, 0.02, ``collab --auto-tune``,
+             ``generate`` (which persists the shaped D), ``benchmark`` (the
+             five methods, FID finite, kernel #1 counted per method) and
+             ``inspect``, with 8 sampling rounds and FID over 2,048 samples
+             (cuts); ``profile`` in a child process (its trace must hold
+             ``train_chunk``, ``refinement`` and a device kernel); then
+             ``select_hparams`` over K 5, 10, rates 0.01, 0.02 and
+             objectives ns, kl on phase 5t's trained mnist state (4
+             rounds: each ns cell launches the bf16 conv kernel 4 times,
+             each kl cell none) and ``benchmark`` on phase 5t's trained
+             toy2d state (%HQ and KL per method, kernels #5 and #1).
+
 Between phases 5 and 6, one DRS step through ``sampling/rejection.py`` is
 profiled: the key's draw and the kernel, at most two launches.
 
@@ -114,6 +137,7 @@ line is ``{"ok": true, "device": {...}}``. Needs no network.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1303,13 +1327,13 @@ def eval_phase(torch, dev, exp, state, pools):
 
     eexp = Experiment(apply_overrides(exp.cfg, EVAL_OVERRIDES),
                       echo_metrics=False, device=dev)
+    out = {"exp": eexp}  # its feature net and real stats serve phase 5f
     ecfg = eexp.cfg.eval
     phase(f"5e: evaluation on trained weights (mnist, {exp.cfg.train.niters}"
           f" iterations): feature net {ecfg.feature_net!r}, "
           f"{ecfg.fid_num_samples} real samples in batches of "
           f"{ecfg.fid_batch_size}, precision/recall on {ecfg.prd_samples}, "
           f"KID over {ecfg.kid_subsets} subsets of {ecfg.kid_subset_size}")
-    out = {}
     fn, out["train_s"] = timed(torch, eexp._feature_fn)
     print(f"   feature net {eexp._feature_label}: "
           f"{ecfg.feature_train_steps} training steps in "
@@ -1440,6 +1464,7 @@ def train_phase(torch, dev):
     total = {k: total[k] + launches[k] for k in total}
     out["eval"] = eval_phase(torch, dev, exp, restored,
                              {"standard": std, "collab": res})
+    out["mnist_trained"] = (exp, restored)
 
     exp = toy2d_train(dev)
     state, restored, ips, _ = train_run(torch, exp, "toy2d")
@@ -1458,6 +1483,7 @@ def train_phase(torch, dev):
               f"{m['accept_rate']:.4f}")
         out[f"toy2d {method}"] = m
     mlp_refine_cases(torch, dev, d=restored.d, batches=(BATCH,))
+    out["toy2d_trained"] = (exp, restored)
 
     exp = options_train(dev)
     state, restored, ips, rows = train_run(torch, exp, "mnist options")
@@ -1725,6 +1751,438 @@ def imagenet64_phase(torch, dev):
     return total, out
 
 
+# Phase 5f: the paper's experiment workflow on the cifar10 preset (DCGAN
+# 32x32x3, 64/64 filters, z = 100, batch 256, bf16; K = 10, rate 0.02,
+# shape_every 4) at full width, on CIFAR-10 files that the phase writes in
+# the dataset's own format (the port's procedural cifar10 images), through
+# the CLI a user runs. Cut for time: 200 of its 20,000 training iterations,
+# 8 rounds of 256 per sampling run (the preset's 40), FID over 2,048
+# samples (the preset's 10,000).
+F_WORKDIR = os.path.join(TRAIN_DIR, "smoke_cifar10")
+F_FILES = os.path.join(TRAIN_DIR, "smoke_cifar10_files")
+F_PER_BATCH = 2_000  # images in each of the five data_batch_i pickles
+F_CUTS = ["train.niters=200", "refine.num_batches=8",
+          "eval.fid_num_samples=2048"]
+F_GRID = ["sweep_steps=5,10", "tune_rates=0.01,0.02"]
+# The trained mnist preset's grid (kernel #4 for ns, the gate for kl).
+F_MNIST_GRID = dict(ks=[5, 10], rates=[0.01, 0.02], objectives=["ns", "kl"])
+# Crop and resize on the card against the CPU: CelebA's aligned size, the
+# celeba preset's crop 108 -> 64.
+F_CROP_N, F_CROP_HW, F_CROP = 512, (218, 178), (108, 64)
+F_RESIZE_ATOL, F_RESIZE_SHARE = 1e-4, 1e-3
+
+
+def write_cifar10_files(root, images, labels, per_batch):
+    """``data_batch_1`` .. ``_5`` in CIFAR-10's python pickle format:
+    ``b"data"`` (n, 3072) uint8 in CHW order, ``b"labels"`` a list."""
+    import pickle
+
+    os.makedirs(root, exist_ok=True)
+    for i in range(5):
+        x = images[i * per_batch:(i + 1) * per_batch]
+        with open(os.path.join(root, f"data_batch_{i + 1}"), "wb") as fh:
+            pickle.dump({
+                b"batch_label": f"training batch {i + 1} of 5".encode(),
+                b"labels": labels[i * per_batch:(i + 1) * per_batch].tolist(),
+                b"data": x.transpose(0, 3, 1, 2).reshape(-1, 3072),
+                b"filenames": [f"{j:05d}.png".encode()
+                               for j in range(len(x))]}, fh)
+
+
+def u8_apart(torch, a, b):
+    """(largest difference, share of values that differ) of two uint8
+    tensors."""
+    d = (a.cpu().int() - b.cpu().int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def check_resize(torch, dev, u8, crop, size, label):
+    """center_crop_resize on the card against the CPU: float32 within
+    F_RESIZE_ATOL before rounding, uint8 at most 1 apart on at most
+    F_RESIZE_SHARE of the values."""
+    from collaborative_gan_sampling_torch.data.images import (
+        center_crop_resize,
+        resize_bilinear,
+    )
+
+    x = torch.as_tensor(u8)
+    h, w = x.shape[1:3]
+    if crop and crop < min(h, w):
+        top, left = (h - crop) // 2, (w - crop) // 2
+        x = x[:, top:top + crop, left:left + crop]
+    err = float((resize_bilinear(x.to(dev), size).cpu()
+                 - resize_bilinear(x, size)).abs().max())
+    got, seconds = timed(torch, lambda: center_crop_resize(u8, crop, size,
+                                                           device=dev))
+    most, share = u8_apart(torch, got, center_crop_resize(u8, crop, size,
+                                                          device="cpu"))
+    print(f"   {label}: {tuple(got.shape)} on the card in {seconds:.3f} s; "
+          f"float32 within {err:.3g} of the CPU's, uint8 at most {most} "
+          f"apart on {100 * share:.4f}% of the values")
+    if err > F_RESIZE_ATOL or most > 1 or share > F_RESIZE_SHARE:
+        raise AssertionError(f"{label}: the card's resize is off the CPU's")
+
+
+@contextlib.contextmanager
+def sample_log(torch, counters):
+    """Every ``Experiment.sample`` call in the block logged: its method,
+    refine config, each counter's launches in it, seconds to a synchronize,
+    sample count and accept rate."""
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+
+    log, real = [], Experiment.sample
+
+    def logged(self, state, method=None, refine_cfg=None, **kw):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(self, state, method=method, refine_cfg=refine_cfg, **kw)
+        torch.cuda.synchronize()
+        log.append(dict(
+            method=method or self.cfg.refine.method,
+            rcfg=refine_cfg or self.cfg.refine,
+            launches={k: c.launches - before[k]
+                      for k, c in counters.items()},
+            seconds=time.perf_counter() - t0, n=res.samples.shape[0],
+            accept_rate=res.accept_rate))
+        return res
+
+    Experiment.sample = logged
+    try:
+        yield log
+    finally:
+        Experiment.sample = real
+
+
+def run_cli(torch, args, counters):
+    """``cli.main(args)`` in this process, every counter set to 0 just
+    before and read just after: (the JSON its stdout ends with, seconds,
+    launches)."""
+    import io
+
+    from collaborative_gan_sampling_torch import cli
+
+    buf = io.StringIO()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {args[0]} exited {rc}: {text[-2000:]}")
+    lines = text.strip().splitlines()
+    # The JSON result is the last object printed (indented or on one line).
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    for line in lines[:start]:
+        print(f"   | {line}")
+    return (json.loads("\n".join(lines[start:])), seconds,
+            {k: c.launches for k, c in counters.items()})
+
+
+def files_phase(torch, dev):
+    """5f a-b: CIFAR-10 pickles written and loaded bit for bit on the card;
+    center_crop_resize on the card against the CPU; the folder loader
+    where PIL is installed."""
+    from collaborative_gan_sampling_torch.config import DataConfig
+    from collaborative_gan_sampling_torch.data.images import (
+        load_image_dataset,
+        procedural_images,
+    )
+
+    n = 5 * F_PER_BATCH
+    images, labels = procedural_images("cifar10", n, 32, 3, 10, seed=0,
+                                       device=dev)
+    images_np, labels_np = images.cpu().numpy(), labels.cpu().numpy()
+    shutil.rmtree(F_FILES, ignore_errors=True)
+    write_cifar10_files(F_FILES, images_np, labels_np, F_PER_BATCH)
+    nbytes = sum(os.path.getsize(os.path.join(F_FILES, f))
+                 for f in os.listdir(F_FILES))
+    ds, seconds = timed(torch, lambda: load_image_dataset(
+        DataConfig(dataset="cifar10", path=F_FILES), device=dev))
+    same = (torch.equal(ds.images, images) and ds.labels.dtype == torch.int32
+            and torch.equal(ds.labels, labels))
+    print(f"   5 pickles of {F_PER_BATCH} images ({nbytes / 1e6:.1f} MB) "
+          f"loaded in {seconds:.2f} s as {ds.name!r}, procedural "
+          f"{ds.procedural}: images {tuple(ds.images.shape)} "
+          f"{ds.images.dtype} and labels {ds.labels.dtype} equal to what "
+          f"was written: {same}")
+    if ds.procedural or not same:
+        raise AssertionError("the CIFAR-10 files did not load bit for bit")
+
+    celeba = torch.randint(0, 256, (F_CROP_N, *F_CROP_HW, 3),
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=torch.uint8)
+    check_resize(torch, dev, celeba, *F_CROP, f"{F_CROP_N} CelebA-size "
+                 f"images {F_CROP_HW}, crop {F_CROP[0]} -> {F_CROP[1]}")
+    check_resize(torch, dev, images_np, 0, 28, f"the {n} CIFAR-10 images "
+                 "32 -> 28 (the image_size override)")
+    try:
+        import PIL
+        from PIL import Image
+    except ImportError:
+        print("   PIL is not installed here: the folder loader returns "
+              "None (it is held against JAX's on the CPU by the tests)")
+        return
+    folder = os.path.join(F_FILES, "celeba")
+    os.makedirs(folder)
+    for i in range(16):
+        Image.fromarray(celeba[i].numpy()).save(
+            os.path.join(folder, f"{i:06d}.png"))
+    cfg = DataConfig(dataset="celeba", path=folder)
+    card_ds = load_image_dataset(cfg, image_size=64, device=dev)
+    cpu_ds = load_image_dataset(cfg, image_size=64, device="cpu")
+    most, share = u8_apart(torch, card_ds.images, cpu_ds.images)
+    print(f"   PIL {PIL.__version__} is installed here: 16 PNGs through "
+          f"the folder loader, "
+          f"{tuple(card_ds.images.shape)} on the card, procedural "
+          f"{card_ds.procedural}; uint8 at most {most} apart from the CPU's "
+          f"on {100 * share:.4f}%")
+    if (card_ds.procedural or card_ds.image_shape != (64, 64, 3) or most > 1
+            or share > F_RESIZE_SHARE):
+        raise AssertionError("the folder loader on the card")
+
+
+def cifar10_workflow(torch, dev, counters):
+    """5c of the phase: train, tune, collab --auto-tune, generate (which
+    persists the shaped D), benchmark and inspect through the CLI in this
+    process; profile in a child process. Returns the launches and the
+    readings."""
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+    from collaborative_gan_sampling_torch.models import make_bundle
+
+    shutil.rmtree(F_WORKDIR, ignore_errors=True)
+    # A log line a chunk (20 iterations): the last one times a warm chunk.
+    base = ["--config", "cifar10", "--workdir", F_WORKDIR, "--device",
+            dev.type, f"data.path={F_FILES}", "train.log_every=20", *F_CUTS]
+    cfg = apply_overrides(get_preset("cifar10"), F_CUTS)
+    total = dict.fromkeys(counters, 0)
+    out = {}
+
+    def cli(*args):
+        res, seconds, launches = run_cli(torch, [*args, *base], counters)
+        for k in total:
+            total[k] += launches[k]
+        print(f"   cli {' '.join(args)}: {seconds:.2f} s, launches "
+              f"{launches}")
+        return res, seconds
+
+    _, seconds = cli("train")
+    with open(os.path.join(F_WORKDIR, "train.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    out["train_ips"] = (cfg.train.niters / seconds, rows[-1]["iters_per_s"])
+    print(f"   train: {cfg.train.niters / seconds:.1f} iterations/s over "
+          f"the whole call, {rows[-1]['iters_per_s']} in the last chunk; "
+          f"{len(rows)} log lines, the last: "
+          + ", ".join(f"{k} {rows[-1][k]:.4f}" for k in LOSS_KEYS
+                      if k in rows[-1]))
+    if not all(math.isfinite(r[k]) for r in rows for k in LOSS_KEYS
+               if k in r):
+        raise AssertionError("cifar10 training logged a non-finite loss")
+
+    with sample_log(torch, counters) as log:
+        tune, _ = cli("tune", *F_GRID)
+    print(f"   tune grid (method refinement): best K {tune['best_k']}, "
+          f"rate {tune['best_rate']}")
+    for cell, m in tune["grid"].items():
+        print(f"     {cell}: FID {m['fid']:.4f}, accept rate "
+              f"{m['accept_rate']:.4f}")
+    if len(tune["grid"]) != 4 or not all(
+            math.isfinite(m["fid"]) for m in tune["grid"].values()):
+        raise AssertionError(f"cifar10 tune grid {tune['grid']}")
+
+    with sample_log(torch, counters) as log:
+        collab, _ = cli("collab", "--auto-tune", *F_GRID)
+    final = log[-1]
+    out["collab_sps"] = final["n"] / final["seconds"]
+    print(f"   collab --auto-tune: tuned K {collab['tuned_k']}, rate "
+          f"{collab['tuned_rate']} over {len(log) - 1} collab cells; FID "
+          f"{collab['fid']:.4f}, accept rate {collab['accept_rate']:.4f}; "
+          f"the final run {final['n']} samples in {final['seconds']:.3f} s "
+          f"({out['collab_sps']:.1f} refined samples/s), kernel #1 "
+          f"{final['launches']['drs_accept']} launches")
+    if not math.isfinite(collab["fid"]) or len(log) != 5:
+        raise AssertionError(f"cifar10 collab --auto-tune: {collab}")
+
+    served, _ = cli("generate", "n=256")
+    print(f"   generate (collab, persists the shaped D): {served['n']} "
+          f"samples, accept rate {served['accept_rate']:.4f}")
+
+    with sample_log(torch, counters) as log:
+        table, _ = cli("benchmark")
+    out["benchmark"] = {}
+    for rec in log:
+        m = table[rec["method"]]
+        out["benchmark"][rec["method"]] = rec
+        print(f"     {rec['method']:>10}: FID {m['fid']:.4f}, accept rate "
+              f"{m['accept_rate']:.4f}, {rec['n'] / rec['seconds']:.1f} "
+              f"samples/s, kernel #1 {rec['launches']['drs_accept']} "
+              "launches")
+    if [r["method"] for r in log] != list(table) or not all(
+            math.isfinite(m["fid"]) for m in table.values()):
+        raise AssertionError(f"cifar10 benchmark {table}")
+    for method in ("reject", "collab"):
+        if out["benchmark"][method]["launches"]["drs_accept"] <= 0:
+            raise AssertionError(f"cifar10 {method} launched no kernel #1")
+
+    info, _ = cli("inspect")
+    bundle = make_bundle(cfg.model, device="cpu")
+    g, d = bundle.init(torch.Generator().manual_seed(0))
+    counts = (sum(p.numel() for p in g.parameters()),
+              sum(p.numel() for p in d.parameters()))
+    print(f"   inspect: step {info['step']}, G {info['g_params']} and D "
+          f"{info['d_params']} parameters (the bundle's {counts}), shaped D "
+          f"saved {info['shaped_d_saved']}")
+    if (info["step"] != cfg.train.niters
+            or (info["g_params"], info["d_params"]) != counts
+            or not info["shaped_d_saved"]):
+        raise AssertionError(f"cli inspect {info}")
+
+    # profile in a child process (a profiler session in this one can leave
+    # later sessions without device records), short: chunks of 2
+    # iterations and 2 refinement rounds.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "collaborative_gan_sampling_torch.cli",
+         "profile", *base, "train.steps_per_call=2", "refine.num_batches=2"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli profile: {proc.stderr[-3000:]}")
+    trace_dir = json.loads(proc.stdout.strip().splitlines()[-1])["trace_dir"]
+    (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    # Each annotation is a host event ("user_annotation") and, where the
+    # device ran under it, a device one ("gpu_user_annotation").
+    names = [e.get("name") for e in events
+             if e.get("cat") == "user_annotation"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"   cli profile (child process, {time.perf_counter() - t0:.1f} "
+          f"s): {os.path.getsize(path) / 1e6:.1f} MB trace, "
+          f"{names.count('train_chunk')} train_chunk and "
+          f"{names.count('refinement')} refinement annotations, {kernels} "
+          "device kernels")
+    if (names.count("train_chunk") != 3 or names.count("refinement") != 1
+            or kernels == 0):
+        raise AssertionError("the cifar10 profile trace")
+    for name in ("train_chunk", "refinement"):
+        wall, busy, n = annotated_busy(events, name)
+        out[f"{name}_busy"] = (wall, busy, n)
+        print(f"     {name}: {wall:.2f} ms under the profiler, device busy "
+              f"{busy:.2f} ms ({100 * busy / wall:.1f}%) in {n} kernels")
+    return total, out
+
+
+def annotated_busy(events, name):
+    """(host ms under the annotations ``name``, device ms of the kernels
+    that started within them, their count) in a Chrome trace. The
+    annotated regions end in a synchronization, so their kernels run
+    within them."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(a <= e["ts"] < b for a, b in spans)]
+    return (sum(b - a for a, b in spans) / 1e3,
+            sum(e["dur"] for e in kernels) / 1e3, len(kernels))
+
+
+def mnist_grid(torch, dev, trained, eval_exp, counters):
+    """5d of the phase: select_hparams on phase 5t's trained mnist state,
+    num_batches 4, with the feature net and real stats of phase 5e: each
+    ns cell launches the bf16 conv kernel once a round, each kl cell never
+    (the gate)."""
+    from collaborative_gan_sampling_torch.config import apply_overrides
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+
+    exp0, state = trained
+    exp = Experiment(apply_overrides(exp0.cfg, ["refine.num_batches=4"]),
+                     echo_metrics=False, device=dev)
+    exp.adopt_eval_caches(eval_exp)
+    for c in counters.values():
+        c.launches = 0
+    with sample_log(torch, counters) as log:
+        best, table = exp.select_hparams(state, **F_MNIST_GRID)
+    launches = {k: c.launches for k, c in counters.items()}
+    rounds = exp.cfg.refine.num_batches
+    print(f"   grid {F_MNIST_GRID}, {rounds} rounds of "
+          f"{exp.cfg.refine.batch_size}: best {best}")
+    for (cell, m), rec in zip(table.items(), log):
+        n = rec["launches"]["conv_refine28_bf16"]
+        print(f"     {cell}: FID {m['fid']:.4f}, {n} launches of "
+              f"conv_refine28_bf16, {rec['seconds'] * 1e3:.1f} ms")
+        want = rounds if cell[2] == "ns" else 0
+        if n != want or not all(math.isfinite(v) for v in m.values()
+                                if isinstance(v, float)):
+            raise AssertionError(f"mnist grid cell {cell}: {n} launches "
+                                 f"(want {want}), {m}")
+    return launches
+
+
+def toy2d_benchmark(torch, trained, counters):
+    """5e of the phase: the five methods on phase 5t's trained toy2d
+    state."""
+    exp, state = trained
+    for c in counters.values():
+        c.launches = 0
+    with sample_log(torch, counters) as log:
+        table = exp.benchmark(state)
+    launches = {k: c.launches for k, c in counters.items()}
+    for rec in log:
+        m = table[rec["method"]]
+        print(f"     {rec['method']:>10}: %HQ {m['pct_hq']:.4f}, KL "
+              f"{m['kl']:.4f}, accept rate {m['accept_rate']:.4f}; "
+              f"launches {rec['launches']}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"toy2d benchmark {rec['method']}: {m}")
+    for method, kernel in (("refinement", "refine_mlp"),
+                           ("collab", "refine_mlp"), ("reject", "drs_accept"),
+                           ("collab", "drs_accept")):
+        rec = next(r for r in log if r["method"] == method)
+        if rec["launches"][kernel] <= 0:
+            raise AssertionError(f"toy2d {method} launched no {kernel}")
+    return launches
+
+
+def files_tuning_phase(torch, dev, trained):
+    """Phase 5f: files, tuning and the benchmark matrix. Returns the
+    kernels' launches and the readings."""
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+
+    counters = {"refine_mlp": fused_refine_mlp, **conv_counters()}
+    t_phase = time.perf_counter()
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 5f]"
+
+    phase("5f: CIFAR-10 files, crop and resize on the card" + at())
+    files_phase(torch, dev)
+    phase("5f: the cifar10 preset through the CLI (train, tune, collab "
+          "--auto-tune, generate, benchmark, inspect, profile); cuts: "
+          + ", ".join(F_CUTS) + "; grid " + " ".join(F_GRID) + at())
+    total, out = cifar10_workflow(torch, dev, counters)
+    phase("5f: select_hparams on the trained mnist state (kernel #4)"
+          + at())
+    for k, n in mnist_grid(torch, dev, trained["mnist_trained"],
+                           trained["eval"]["exp"], counters).items():
+        total[k] += n
+    phase("5f: the toy2d benchmark matrix on the trained state" + at())
+    for k, n in toy2d_benchmark(torch, trained["toy2d_trained"],
+                                counters).items():
+        total[k] += n
+    shutil.rmtree(F_FILES)
+    shutil.rmtree(F_WORKDIR)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"   phase 5f: {out['seconds']:.1f} s; launches {total}")
+    return total, out
+
+
 def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
@@ -1943,6 +2401,10 @@ def main() -> None:
     in64_launches, in64 = imagenet64_phase(torch, dev)
     # Its collab, per-class, serving and z-space runs.
     launches["drs_accept"] += in64_launches
+    # Phase 5f after the timing phase too; each of its runs counted from 0.
+    files_launches, files = files_tuning_phase(torch, dev, trained)
+    for k, n in files_launches.items():
+        launches[k] += n
     rows = []
     meta = {
         "conv_refine28": dict(
@@ -2006,6 +2468,16 @@ def main() -> None:
           f"D's conv0 ops {100 * in64['conv0']:.1f}% of the device time; "
           f"intra-FID {in64['intra_fid']['intra_fid']:.4f} over "
           f"{in64['intra_fid']['intra_fid_classes']} classes")
+    bench = files["benchmark"]
+    print(f"   files, tuning and the benchmark matrix (phase 5f, "
+          f"{files['seconds']:.1f} s): cifar10 train "
+          f"{files['train_ips'][0]:.1f} iterations/s over the whole call, "
+          f"{files['train_ips'][1]} in the last chunk, collab "
+          f"{files['collab_sps']:.1f} refined samples/s (the tuned run), "
+          "kernel #1 launches by method "
+          + ", ".join(f"{m} {r['launches']['drs_accept']}"
+                      for m, r in bench.items())
+          + f"; launches in the phase {files_launches}")
     print(f"   whole script: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -2,17 +2,23 @@
 
 Counterpart of ``collaborative_gan_sampling_tpu/data/images.py``. The whole
 dataset lives on the device as uint8 and each batch is a gather plus
-normalisation there. ``load_image_dataset`` reads MNIST / Fashion-MNIST idx
-files from ``cfg.path`` when they are there and otherwise builds the same
-deterministic procedural image distribution as the JAX package, so every
-path stays runnable offline.
+normalisation there. ``load_image_dataset`` reads the dataset's files from
+``cfg.path`` when they are there (MNIST / Fashion-MNIST idx files, the
+CIFAR-10 python pickles, or a folder of CelebA / ImageNet-64 jpg and png
+files) and otherwise builds the same deterministic procedural image
+distribution as the JAX package, so every path stays runnable offline.
+File images of another size than the model's are centre-cropped (folders)
+and resized on the device by ``center_crop_resize``: JAX's bilinear resize,
+which antialiases when it shrinks, summed in a fixed order so that the
+card and the CPU give the same bits, in chunks of images so that a large
+folder never needs the whole float32 set on the card at once. Held to the
+JAX package's ``_center_crop_resize`` in ``tests/test_torch_files.py``:
+float32 within 1e-4 before rounding, uint8 at most one level apart on at
+most 0.1% of the values.
 
 ``ImageDataset.batch_by_labels`` draws one real image of each requested
 class (class-balanced shaping of a conditional D) through a per-class index
 table on the device.
-
-Not ported yet: the CIFAR-10 and image-folder loaders (their presets are not
-ported either) and resizing file datasets to another ``image_size``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import gzip
 import math
 import os
+import pickle
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -151,6 +158,153 @@ def _load_mnist_like(root: str
     # No labels file: the data is unlabelled (None), never all class 0.
     labels = _load_idx(labs_p).astype(np.int32) if labs_p else None
     return images, labels
+
+
+def _load_cifar10(root: str) -> tuple[np.ndarray, np.ndarray] | None:
+    """The five CIFAR-10 python pickles ``data_batch_1`` .. ``_5``, in
+    ``root`` or in ``root/cifar-10-batches-py``: (images (N, 32, 32, 3)
+    uint8, labels (N,) int32), or None when they are not there. Each
+    pickle's ``b"data"`` is (n, 3072) uint8 in CHW order. The pickles are
+    the dataset's own files, read from the path the user configured."""
+    batches = [os.path.join(root, f"data_batch_{i}") for i in range(1, 6)]
+    sub = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.exists(batches[0]) and os.path.isdir(sub):
+        batches = [os.path.join(sub, f"data_batch_{i}")
+                   for i in range(1, 6)]
+    if not os.path.exists(batches[0]):
+        return None
+    xs, ys = [], []
+    for b in batches:
+        with open(b, "rb") as fh:
+            d = pickle.load(fh, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], np.uint8).reshape(-1, 3, 32, 32)
+                  .transpose(0, 2, 3, 1))
+        ys.append(np.asarray(d[b"labels"], np.int32))
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def _on_device(u8, device) -> torch.Tensor:
+    """A contiguous copy of numpy or torch ``u8`` on ``device``."""
+    if isinstance(u8, torch.Tensor):
+        return u8.contiguous().to(device)
+    return torch.tensor(u8, device=device)
+
+
+def _resize_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The weights of ``jax.image.resize(..., "bilinear")`` along one axis
+    of ``n_in`` -> ``n_out`` samples (JAX's ``compute_weight_mat``: a
+    triangle kernel at half-pixel centres, widened by the scale when
+    shrinking, each output's weights normalised to sum to 1), computed in
+    float32, as (index (T, n_out) int64, weight (T, n_out) float32): each
+    output's nonzero taps in input order, padded with weight 0."""
+    f32 = np.float32
+    # As JAX: the scale and its inverse in double precision, then float32.
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    w = np.maximum(f32(0), f32(1) - dist / kernel_scale)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w,
+                 f32(0)).astype(f32)
+    nz = w != 0
+    taps = max(1, int(nz.sum(0).max()))
+    index = np.zeros((taps, n_out), np.int64)
+    weight = np.zeros((taps, n_out), f32)
+    for o in range(n_out):
+        rows = np.flatnonzero(nz[:, o])
+        index[:len(rows), o] = rows
+        weight[:len(rows), o] = w[rows, o]
+    return index, weight
+
+
+def _resize_axis(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    """``x`` resized along ``axis``: out = sum_t w_t * x[index_t], the taps
+    in input order, each product and sum a separate float32 op, so that
+    every device rounds the same way and gives the same bits."""
+    index, weight = _resize_taps(x.shape[axis], size)
+    shape = [1] * x.ndim
+    shape[axis] = size
+    out = None
+    for i, w in zip(index, weight):
+        term = (x.index_select(axis, torch.from_numpy(i).to(x.device))
+                * torch.from_numpy(w).to(x.device).reshape(shape))
+        out = term if out is None else out + term
+    return out
+
+
+def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """float (N, H, W, C) -> float32 (N, size, size, C): the bilinear resize
+    of ``jax.image.resize(..., "bilinear")``, which antialiases when it
+    shrinks (``_resize_taps``), height then width as JAX contracts them.
+    The card and the CPU give the same bits: an output within rounding of
+    a half (about 1.5% of them lie within 1e-4 of one at 32 -> 28) rounds
+    alike on both, where two summation orders would part on up to 0.3% of
+    the uint8 values."""
+    x = x.float()
+    for axis in (1, 2):
+        if x.shape[axis] != size:
+            x = _resize_axis(x, axis, size)
+    return x.contiguous()
+
+
+# Images resized at a time: 2,048 crops of 108 x 108 x 3 are 287 MB of
+# float32 on the device, where CelebA's 200,000 would be 28 GB.
+RESIZE_CHUNK = 2048
+
+
+def center_crop_resize(u8, crop: int, size: int,
+                       device=None) -> torch.Tensor:
+    """uint8 images (N, H, W, C), numpy or torch, -> uint8 (N, size, size,
+    C) on ``device``: a centred ``crop`` x ``crop`` window where ``crop``
+    is set and smaller than both sides, then, where the height is not
+    ``size``, ``resize_bilinear`` rounded half to even and clipped to
+    [0, 255]. ``RESIZE_CHUNK`` images at a time go to the device; each
+    image is independent, so the chunks do not change the result."""
+    device = resolve_device(device)
+    x = u8
+    h, w = x.shape[1:3]
+    if crop and crop < min(h, w):
+        top, left = (h - crop) // 2, (w - crop) // 2
+        x = x[:, top:top + crop, left:left + crop]
+    if x.shape[1] == size:
+        return _on_device(x, device)
+    parts = []
+    for start in range(0, x.shape[0], RESIZE_CHUNK):
+        part = resize_bilinear(
+            _on_device(x[start:start + RESIZE_CHUNK], device), size)
+        parts.append(torch.clamp(torch.round(part), 0, 255)
+                     .to(torch.uint8))
+    return torch.cat(parts)
+
+
+def _load_image_folder(root: str, crop: int, size: int, max_items: int,
+                       device=None) -> tuple[torch.Tensor, None] | None:
+    """A CelebA-style folder: the sorted ``.jpg`` / ``.jpeg`` / ``.png``
+    files of ``root`` (up to ``max_items``), each read through PIL as RGB,
+    then ``center_crop_resize``d on ``device`` ``RESIZE_CHUNK`` files at a
+    time, so that the host never holds the whole folder's raw pixels:
+    (images (N, size, size, 3) uint8, None). None when PIL is not
+    installed or the folder holds no such file."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    files = sorted(
+        os.path.join(root, f) for f in os.listdir(root)
+        if f.lower().endswith((".jpg", ".jpeg", ".png")))[:max_items]
+    if not files:
+        return None
+    parts = []
+    for start in range(0, len(files), RESIZE_CHUNK):
+        raw = []
+        for f in files[start:start + RESIZE_CHUNK]:
+            with Image.open(f) as im:
+                raw.append(np.asarray(im.convert("RGB"), np.uint8))
+        parts.append(center_crop_resize(np.stack(raw), crop, size, device))
+    return torch.cat(parts), None
 
 
 # ---------------------------------------------------------------------------
@@ -301,19 +455,24 @@ def load_image_dataset(cfg: DataConfig, image_size: int | None = None,
 
     loaded = None
     if cfg.path and os.path.isdir(cfg.path):
-        if name not in ("mnist", "fmnist"):
-            raise NotImplementedError(
-                f"the {name} file loader is not ported yet")
-        loaded = _load_mnist_like(cfg.path)
+        if name in ("mnist", "fmnist"):
+            loaded = _load_mnist_like(cfg.path)
+        elif name == "cifar10":
+            loaded = _load_cifar10(cfg.path)
+        else:  # celeba, imagenet64: a folder of image files
+            loaded = _load_image_folder(cfg.path, cfg.crop_size, size,
+                                        max_items, device)
     if loaded is not None:
         images, labels = loaded
         images = images[:max_items]
+        # idx and CIFAR files come at their own resolution: a
+        # model.image_size override resizes them on the device (the folder
+        # loader has resized already).
         if images.shape[1] != size or images.shape[2] != size:
-            raise NotImplementedError(
-                f"resizing {name} files to {size}x{size} is not ported yet")
+            images = center_crop_resize(images, 0, size, device)
         if labels is not None:
             labels = torch.from_numpy(labels[:max_items]).to(device)
-        return ImageDataset(images=torch.from_numpy(images.copy()).to(device),
+        return ImageDataset(images=_on_device(images, device),
                             labels=labels, name=name, procedural=False)
 
     images, labels = procedural_images(name, procedural_n, size, channels,

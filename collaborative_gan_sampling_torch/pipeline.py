@@ -25,9 +25,17 @@ training and sampling phases:
   data. Feature nets, moments and distances run in float32 with TF32 off
   on the card (``utils/precision.py``). Each draws its own stream,
   ``step_generator(seed, i, "eval")`` at the JAX package's indices: 1 the
-  real stats, 3 precision/recall and fid_refine, 4 KID, 5 intra-FID.
+  real stats, 3 precision/recall and fid_refine, 4 KID, 5 intra-FID;
+* ``select_hparams``: the per-checkpoint (K, rate[, objective][, space]
+  [, stop][, prox]) grid with its cell cache, retries, boundary warning
+  and geometric extension (JAX ``pipeline.py:850-1005``; held to it in
+  ``tests/test_torch_tune.py``: the same cells in the same order, the same
+  best, warning and extensions, and caches that cross between the two);
+* ``benchmark``: the five methods side by side into ``benchmark.jsonl``
+  (JAX ``:1007-1019``), and ``profile``: a ``torch.profiler`` trace of
+  train chunks and one refinement run (JAX ``:773-795``).
 
-Tuning, export and the figures are not ported yet; they raise
+Export and the figures are not ported yet; they raise
 ``NotImplementedError``.
 Everything runs on the card unless ``device`` says otherwise.
 """
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import os
 import time
 
@@ -67,6 +76,7 @@ from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
 from collaborative_gan_sampling_torch.evals.prd import precision_recall
 from collaborative_gan_sampling_torch.models import make_bundle
 from collaborative_gan_sampling_torch.sampling.collab import (
+    METHODS,
     SampleResult,
     sample,
 )
@@ -91,19 +101,75 @@ from collaborative_gan_sampling_torch.utils.prng import (
     fold_generator,
     step_generator,
 )
+from collaborative_gan_sampling_torch.utils.retry import with_retries
 from collaborative_gan_sampling_torch.utils.weights import (
     load_jax_variables,
     to_jax_variables,
 )
 
 # The JAX Experiment's methods that the port does not have yet.
-_NOT_PORTED = ("benchmark", "export", "profile", "select_hparams",
-               "teaser")
+_NOT_PORTED = ("export", "teaser")
 
 
 def shaped_d_path(workdir: str) -> str:
     """Where a workdir's persisted shaped discriminator lives."""
     return os.path.join(workdir, "shaped_d.msgpack")
+
+
+def _append_cache_line(cache_path: str, cell: tuple, metrics: dict) -> None:
+    """Append one grid cell's record, ``{"cell": [...], "metrics": {...}}``
+    (the JAX package's line, so either package reads the other's cache),
+    under an exclusive lock: writers that share a cache must not tear or
+    interleave lines."""
+    import fcntl
+
+    with open(cache_path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            fh.write(json.dumps({"cell": list(cell),
+                                 "metrics": metrics}) + "\n")
+            fh.flush()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def _grid_edges(best: tuple, ks: list, rates: list) -> list[str]:
+    """The edges of the swept (K, rate) grid that the best cell lies on: a
+    subset of ["k:low", "k:high", "rate:low", "rate:high"]. An axis of one
+    value has no edge (nothing was swept), and K = 1 is no low edge (there
+    is nothing below it)."""
+    edges = []
+    k, rate = best[0], best[1]
+    if len(set(ks)) > 1:
+        if k == min(ks) and k > 1:
+            edges.append("k:low")
+        elif k == max(ks):
+            edges.append("k:high")
+    if len(set(rates)) > 1:
+        if rate == min(rates):
+            edges.append("rate:low")
+        elif rate == max(rates):
+            edges.append("rate:high")
+    return edges
+
+
+def _extend_axis(vals: list, side: str, integer: bool) -> int | float | None:
+    """One geometric step past the ``side`` ("low" or "high") edge of a
+    grid axis, at the ratio of its two outermost values; None where the
+    axis cannot grow (K's floor of 1, a value already on the axis, or a
+    rate that would not be positive)."""
+    s = sorted(set(vals))
+    if len(s) < 2:
+        return None
+    if side == "low":
+        new = s[0] * (s[0] / s[1])
+    else:
+        new = s[-1] * (s[-1] / s[-2])
+    if integer:
+        new = max(1, int(round(new)))
+        return new if new not in s else None
+    new = float(f"{new:.6g}")
+    return new if new not in s and new > 0 else None
 
 
 class Experiment:
@@ -589,3 +655,184 @@ class Experiment:
         metric = metric or ("kl" if self.is_2d else "fid")
         table = self.sweep(state, ks, method=method)
         return min(table, key=lambda k: table[k][metric]), table
+
+    def select_hparams(self, state: TrainState,
+                       ks: list[int] | None = None,
+                       rates: list[float] | None = None,
+                       method: str = "refinement",
+                       metric: str | None = None,
+                       objectives: list[str] | None = None,
+                       spaces: list[str] | None = None,
+                       stops: list[float] | None = None,
+                       proxs: list[float] | None = None,
+                       progress: bool = False,
+                       cache_path: str | None = None,
+                       extend_grid: int = 0,
+                       ) -> tuple[tuple, dict]:
+        """Per-checkpoint tuning of the refinement: ``evaluate`` of
+        ``method`` at every cell of the grid ks x rates (default 1, 5, 10,
+        20 and ``_default_rate_grid``), and of ``objectives``, ``spaces``,
+        ``stops`` (stop_score) and ``proxs`` (proximal) where given; the
+        best cell minimises ``metric`` (FID on images, mode KL in 2D). The
+        feature net and the real stats are built once.
+
+        Returns (best cell, {cell: metrics}); a cell is (k, rate[, obj]
+        [, space][, stop][, prox]). Cells run in the JAX package's order (K
+        fastest, then rate, objective, space, stop, prox), each under
+        ``with_retries``. With ``cache_path``, finished cells are read from
+        and appended to that JSONL file (torn lines skipped, later
+        duplicates win). A best cell on the edge of the (K, rate) grid
+        prints a warning; with ``extend_grid`` > 0 the offending axes grow
+        by one geometric step, up to that many times, until it is
+        interior."""
+        ks = list(ks or [1, 5, 10, 20])
+        rates = list(rates if rates is not None
+                     else self._default_rate_grid())
+        metric = metric or ("kl" if self.is_2d else "fid")
+        rcfg0 = self.cfg.refine
+        axes = [(objectives, rcfg0.objective), (spaces, rcfg0.space),
+                (stops, rcfg0.stop_score), (proxs, rcfg0.proximal)]
+        objs, spcs, stps, prxs = (vals if vals is not None else [default]
+                                  for vals, default in axes)
+        swept = [vals is not None for vals, _ in axes]
+        cached: dict[tuple, dict] = {}
+        if cache_path and os.path.exists(cache_path):
+            with open(cache_path) as fh:
+                for line in fh:
+                    try:
+                        rec = json.loads(line)
+                        cached[tuple(rec["cell"])] = rec["metrics"]
+                    except (json.JSONDecodeError, KeyError, TypeError):
+                        continue
+        table: dict[tuple, dict] = {}
+
+        def run_cell(rcfg):
+            return self.evaluate(self.sample(state, method=method,
+                                             refine_cfg=rcfg))
+
+        def run_cells(ks_now: list, rates_now: list) -> None:
+            for prox in prxs:
+                for stop in stps:
+                    for space in spcs:
+                        for obj in objs:
+                            for rate in rates_now:
+                                for k in ks_now:
+                                    extra = (obj, space, stop, prox)
+                                    cell = (k, rate) + tuple(
+                                        v for v, on in zip(extra, swept)
+                                        if on)
+                                    if cell in table:
+                                        continue
+                                    if cell in cached:
+                                        table[cell] = cached[cell]
+                                        if progress:
+                                            print(
+                                                f"[select_hparams] {cell} "
+                                                f"(cached) -> {metric}="
+                                                f"{table[cell][metric]:.4f}",
+                                                flush=True)
+                                        continue
+                                    rcfg = dataclasses.replace(
+                                        rcfg0, steps=k, rate=rate,
+                                        objective=obj, space=space,
+                                        stop_score=stop, proximal=prox)
+                                    t0 = time.perf_counter()
+                                    table[cell] = with_retries(
+                                        lambda rcfg=rcfg: run_cell(rcfg),
+                                        label=f"grid {cell}")
+                                    cell_s = time.perf_counter() - t0
+                                    if cache_path:
+                                        _append_cache_line(
+                                            cache_path, cell, table[cell])
+                                    if progress:
+                                        print(f"[select_hparams] {cell} -> "
+                                              f"{metric}="
+                                              f"{table[cell][metric]:.4f} "
+                                              f"({cell_s:.0f}s)",
+                                              flush=True)
+
+        extensions = 0
+        while True:
+            run_cells(ks, rates)
+            best = min(table, key=lambda cell: table[cell][metric])
+            edges = _grid_edges(best, ks, rates)
+            if not edges:
+                break
+            if extensions >= extend_grid:
+                print(f"[select_hparams] WARNING: best cell {best} lies on "
+                      f"the {'/'.join(edges)} edge of the swept grid — the "
+                      "true optimum is plausibly outside it (pass "
+                      "extend_grid>0 to auto-extend)", flush=True)
+                break
+            grew = False
+            for edge in edges:
+                axis, side = edge.split(":")
+                vals = ks if axis == "k" else rates
+                new = _extend_axis(vals, side, integer=(axis == "k"))
+                if new is not None:
+                    vals.append(new)
+                    vals.sort()
+                    grew = True
+                    if progress:
+                        print(f"[select_hparams] extending {axis} grid "
+                              f"{side} -> {new}", flush=True)
+            if not grew:  # K already at its floor of 1
+                break
+            extensions += 1
+        return best, table
+
+    def _default_rate_grid(self) -> list[float]:
+        """A grid of rates around the preset's: 1/4, 1/2, 1, 2 and 4
+        times it."""
+        base = self.cfg.refine.rate
+        return [round(base * m, 6) for m in (0.25, 0.5, 1.0, 2.0, 4.0)]
+
+    # -- benchmark and profile ----------------------------------------------
+
+    def benchmark(self, state: TrainState,
+                  methods: tuple[str, ...] = METHODS) -> dict[str, dict]:
+        """The methods side by side: ``evaluate`` of ``sample`` under each,
+        one ``benchmark.jsonl`` line apiece (``phase="benchmark"``,
+        ``method`` and the metrics, as the JAX package writes them)."""
+        writer = MetricsWriter(os.path.join(self.workdir, "benchmark.jsonl"),
+                               echo=self._echo)
+        table = {}
+        try:
+            for method in methods:
+                table[method] = self.evaluate(self.sample(state,
+                                                          method=method))
+                writer.write(state.step, phase="benchmark", method=method,
+                             **table[method])
+        finally:
+            writer.close()
+        return table
+
+    def profile(self, state: TrainState | None = None,
+                chunks: int = 3) -> str:
+        """A ``torch.profiler`` trace (``utils/profiling.py::trace``) of
+        ``chunks`` train chunks, each under ``record_function("train_chunk")``,
+        and one ``sample(method="refinement")`` under
+        ``record_function("refinement")``, after one warm chunk outside it.
+        Trains ``state`` further. Returns the trace's directory,
+        ``<workdir>/trace``."""
+        from torch.profiler import record_function
+
+        from collaborative_gan_sampling_torch.utils.profiling import (
+            block,
+            trace,
+        )
+
+        state = state if state is not None else self.load_or_train()
+        chunk = make_train_chunk(self.bundle, self.cfg.train, self.data_fn,
+                                 self.seed)
+        state, m = chunk(state)  # first-call set-up outside the trace
+        block(m)
+        logdir = os.path.join(self.workdir, "trace")
+        with trace(logdir):
+            for _ in range(chunks):
+                with record_function("train_chunk"):
+                    state, m = chunk(state)
+                    block(m)
+            with record_function("refinement"):
+                block(self.sample(state, method="refinement").samples)
+        return logdir

@@ -25,7 +25,8 @@ G(z_K):
 with the same clipping, noise, stop score and a proximal pull toward z_0;
 each step is one autograd graph through G and D, both in eval mode.
 ``make_draw_refine_fn`` draws z (and, for a conditional pair, labels unless
-the caller gives them) and refines in either space.
+the caller gives them) and refines in either space; ``refine_samples`` is
+the one-shot call of ``make_refine_fn``.
 """
 
 from __future__ import annotations
@@ -193,3 +194,13 @@ def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
         return x, labels, aux["logits"]
 
     return draw_refine
+
+
+def refine_samples(bundle: GANBundle, d, x0: torch.Tensor, cfg: RefineConfig,
+                   labels: torch.Tensor | None = None,
+                   return_trajectory: bool = False):
+    """One-shot ``make_refine_fn(bundle, cfg, return_trajectory)(d, x0,
+    labels)``: (x_K, aux), through the kernels where their gates hold.
+    Counterpart of the JAX package's ``refine_samples``; held to it in
+    float32 within 1e-5 (``tests/test_torch_benchmark_cli.py``)."""
+    return make_refine_fn(bundle, cfg, return_trajectory)(d, x0, labels)

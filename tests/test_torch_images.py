@@ -182,6 +182,18 @@ def test_procedural_fallback_without_path(tmp_path):
     assert celeba.labels is None and celeba.image_shape == (16, 16, 3)
     with pytest.raises(ValueError, match="unknown image dataset"):
         t_load_image_dataset(TDataConfig(dataset="ring8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="cifar10"):
-        t_load_image_dataset(TDataConfig(dataset="cifar10",
-                                         path=str(tmp_path)), device="cpu")
+    # A cifar10 path without the pickles falls back as JAX's does; one
+    # with them loads (tests/test_torch_files.py holds the loader to JAX's).
+    empty = t_load_image_dataset(TDataConfig(dataset="cifar10",
+                                             path=str(tmp_path)),
+                                 procedural_n=8, device="cpu")
+    assert empty.procedural and empty.name == "cifar10(procedural)"
+    from tests.test_torch_files import write_cifar10
+
+    images, labels = write_cifar10(tmp_path / "cifar", n_per_batch=2)
+    ds = t_load_image_dataset(TDataConfig(dataset="cifar10",
+                                          path=str(tmp_path / "cifar")),
+                              device="cpu")
+    assert not ds.procedural and ds.name == "cifar10"
+    np.testing.assert_array_equal(ds.images.numpy(), images)
+    np.testing.assert_array_equal(ds.labels.numpy(), labels)
