@@ -75,6 +75,20 @@ Phases, each of which raises (and exits non-zero) on failure:
              shaped D of phase 5 (n = 100,000 float32 samples), mnist under
              the shaped D of phase 4 (n = 4,096 uint8 samples), each with
              its launch counters;
+6x. export - run last, after 5f: the mnist bf16 and toy2d collab
+             serving rounds (batch 256, 40 batches, under the shaped Ds of
+             phases 4 and 5) exported with
+             ``sampling/export.py::export_sampler`` and reloaded in one
+             child process (``export_child``) that imports nothing of the
+             models, samplers, training or pipeline: seeds 0 and 1 equal
+             to the live ``round_seeded`` bit for bit, the artifact's
+             launches of its refine kernel and of kernel #1 by the
+             counters (40 a round) and by ``torch.profiler`` kernel names;
+             export seconds, artifact bytes and a warm round's wall, live
+             and reloaded; the toy2d refinement field (``_grid_fields``) on
+             the card against the CPU; 20 toy2d training iterations with
+             ``viz_every`` 10 and the TensorBoard mirror, where matplotlib
+             and tensorboard are installed (a line says which are);
 7. timing  - each kernel and its plain version timed with CUDA events at the
              main paths' shapes (the MLP kernel also at B = 65,536, and by
              tile; the accept step with and without its percentile), each
@@ -2236,6 +2250,264 @@ def serving_phase(torch, dev, toy, mnist):
                     n=20_000)))
 
 
+# Phase 6x: the serving export. The mnist bf16 and toy2d collab serving
+# rounds (batch 256, the presets' 40 batches, under the shaped Ds of phases 4
+# and 5) exported on the card and reloaded in one child process that imports
+# no model code (EXPORT_CHILD); the figures' device work and the TensorBoard
+# mirror through a short toy2d run.
+X_DIR = os.path.join(TRAIN_DIR, "smoke_export")
+X_SEEDS = (0, 1)  # compared bit for bit, live against reloaded
+X_TIMED = 3  # warm rounds timed, live and reloaded
+# The refinement field on the card against the CPU: float32 forward and
+# backward of the 3 x 128 MLP D, sums in another order. Logits at 1e-5;
+# -grad at 1e-5 of the field's largest value: an element's own relative
+# error means nothing where the field crosses 0 (4.4e-4 on random weights,
+# over elements of at least 1e-6 of the largest, on one H100).
+X_LOGIT_ATOL, X_FIELD_RTOL = 1e-5, 1e-5
+X_VIZ_ITERS, X_VIZ_EVERY = 20, 10
+X_FORBIDDEN = ("models", "sampling.serve", "sampling.refine",
+               "sampling.collab", "training", "pipeline", "data")
+
+
+def digest(t) -> str | None:
+    """sha256 of a tensor's bytes (None for None)."""
+    import hashlib
+
+    import torch
+
+    if t is None:
+        return None
+    raw = t.detach().contiguous().reshape(-1).cpu().view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def round_wall(torch, fn, reps: int = X_TIMED) -> float:
+    """Mean wall seconds of ``reps`` warm calls of fn, each synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def export_child(paths: list[str]) -> dict:
+    """The child's side of phase 6x: load each artifact with
+    ``load_sampler`` alone, run it on ``X_SEEDS`` (digests and the launch
+    counters of its cgs:: ops), time warm rounds, and count its kernels in a
+    profile of one round; then check that no model code was imported."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from collaborative_gan_sampling_torch.ops import (
+        accept,
+        conv_refine,
+        refine_mlp,
+    )
+    from collaborative_gan_sampling_torch.sampling.export import (
+        load_sampler,
+    )
+
+    counters = {"conv_refine28_bf16": conv_refine.fused_refine_conv28_bf16,
+                "conv_refine28": conv_refine.fused_refine_conv28,
+                "refine_mlp": refine_mlp.fused_refine_mlp,
+                "drs_accept": accept.drs_accept_mask_philox}
+    out = {}
+    for path in paths:
+        t0 = time.perf_counter()
+        fn, meta = load_sampler(path)
+        load_s = time.perf_counter() - t0
+        for c in counters.values():
+            c.launches = 0
+        digests = {s: [digest(t) for t in fn(s)] for s in X_SEEDS}
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        wall = round_wall(torch, lambda: fn(2))
+        _, kernels, _ = profiled(torch, lambda: fn(3))
+        out[path] = {"load_s": load_s, "digests": digests,
+                     "launches": launches, "round_s": wall,
+                     "kernels": {k: n for k, (_, n) in kernels.items()},
+                     "meta": meta}
+    pkg = "collaborative_gan_sampling_torch."
+    bad = [m for m in sys.modules
+           if m.startswith(tuple(pkg + f for f in X_FORBIDDEN))]
+    if bad:
+        raise AssertionError(f"load_sampler imported model code: {bad}")
+    return out
+
+
+def profiled_count(kernels: dict, name: str) -> int:
+    """Launches the child's profile saw of kernel ``name`` (by its CUDA
+    function's name; refine_kernel is not a part of refine_bf16_kernel)."""
+    return sum(n for k, n in kernels.items()
+               if f"{name}(" in k or f"{name}<" in k or k == name)
+
+
+def export_phase(torch, dev, card, toy, mnist):
+    """Export, reload in a child process, compare bit for bit, count the
+    artifact's launches; the toy2d refinement field on the card against
+    the CPU; a short toy2d run with ``viz_every`` and ``tensorboard``.
+    Returns the kernels' launches in the phase (parent and child) and the
+    phase's numbers."""
+    import copy
+    import importlib.util
+
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+    from collaborative_gan_sampling_torch.sampling.export import (
+        export_sampler,
+    )
+    from collaborative_gan_sampling_torch.sampling.serve import (
+        ServingSampler,
+    )
+    from collaborative_gan_sampling_torch.viz.plots import _grid_fields
+
+    t_phase = time.perf_counter()
+    phase("export and figures: the serving round as a torch.export "
+          "artifact, reloaded without model code")
+    counters = {"refine_mlp": fused_refine_mlp, **conv_counters()}
+    total = {k: 0 for k in counters}
+    shutil.rmtree(X_DIR, ignore_errors=True)
+    os.makedirs(X_DIR)
+    cases = {"mnist": (mnist, {"conv_refine28_bf16": "refine_bf16_kernel",
+                               "drs_accept": "drs_step_kernel"}),
+             "toy2d": (toy, {"refine_mlp": "refine_kernel",
+                             "drs_accept": "drs_step_kernel"})}
+    live, paths, out = {}, {}, {}
+    for name, ((bundle, g, d), kernels) in cases.items():
+        rcfg = get_preset(name).refine
+        if rcfg.batch_size != BATCH:
+            raise AssertionError(f"{name} serves batches of "
+                                 f"{rcfg.batch_size}, not {BATCH}")
+        srv = ServingSampler(bundle, rcfg, "collab")
+        paths[name] = os.path.join(X_DIR, f"{name}.pt2")
+        meta, seconds, launches = counted(torch, lambda: export_sampler(
+            srv, g, d, torch.Generator(device=dev).manual_seed(7),
+            paths[name]), counters)
+        need_launches(launches, tuple(kernels), f"{name} export")
+        m = srv.calibrate(g, d, torch.Generator(device=dev).manual_seed(7))
+        live[name] = {s: [digest(t) for t in srv.round_seeded(
+            g, d, m, torch.tensor([s], device=dev))] for s in X_SEEDS}
+        wall = round_wall(torch, lambda: srv.round_seeded(
+            g, d, m, torch.tensor([2], device=dev)))
+        total = {k: total[k] + launches[k] for k in total}
+        out[name] = {"export_s": seconds, "bytes": meta["bytes"],
+                     "live_round_s": wall, "meta": meta,
+                     "candidates": rcfg.num_batches * rcfg.batch_size}
+
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, sys; sys.path.insert(0, "
+         f"{REPO!r}); import chip_smoke as cs; print(json.dumps("
+         "cs.export_child(sys.argv[1:])))", *paths.values()],
+        capture_output=True, text=True, cwd=REPO, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the export child failed:\n{child.stderr}")
+    reloaded = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"   child process: {child_s:.1f} s (start, load, "
+          f"{len(X_SEEDS)} + {X_TIMED + 2} rounds per artifact)")
+    for name, ((bundle, _, _), kernels) in cases.items():
+        r, o = reloaded[paths[name]], out[name]
+        nb = o["meta"]["num_batches"]
+        got = {int(s): v for s, v in r["digests"].items()}
+        same = got == live[name]
+        counts = {k: r["launches"][k] for k in kernels}
+        seen = {k: profiled_count(r["kernels"], kn)
+                for k, kn in kernels.items()}
+        print(f"   {name} ({card}): export {o['export_s']:.2f} s, "
+              f"{o['bytes']} bytes, load {r['load_s']:.2f} s; a round of "
+              f"{o['candidates']} candidates {1e3 * o['live_round_s']:.2f} "
+              f"ms live, {1e3 * r['round_s']:.2f} ms reloaded; seeds "
+              f"{X_SEEDS} bit for bit {same}; the artifact's launches "
+              f"{counts} (counters, {len(X_SEEDS)} rounds), profiled "
+              f"{seen} (one round)")
+        if not same:
+            raise AssertionError(f"{name}: the reloaded artifact differs "
+                                 f"from the live seeded round: {got} "
+                                 f"against {live[name]}")
+        for k in kernels:
+            if counts[k] != nb * len(X_SEEDS):
+                raise AssertionError(f"{name} artifact launched {k} "
+                                     f"{counts[k]} times, not "
+                                     f"{nb * len(X_SEEDS)}")
+            # The profiler may drop a launch's record; never adds one.
+            if not nb - 1 <= seen[k] <= nb:
+                raise AssertionError(f"{name} artifact's profile shows "
+                                     f"{seen[k]} launches of {k}, not {nb}")
+        for k, n in r["launches"].items():
+            total[k] += n
+        o.update(reloaded_round_s=r["round_s"], load_s=r["load_s"])
+
+    # The overview's arrays: D's logits and -grad on the grid, on the card
+    # and on the CPU.
+    bundle, _, d = toy
+    cpu_bundle = make_bundle(bundle.cfg, "cpu")
+    got = _grid_fields(bundle, d, 3.0)
+    want = _grid_fields(cpu_bundle, copy.deepcopy(d).cpu(), 3.0)
+    e_logit = float(abs(got[2] - want[2]).max())
+    scale = float(abs(want[3]).max())
+    e_field = float(abs(got[3] - want[3]).max()) / scale
+    print(f"   toy2d _grid_fields (40 x 40) on the card against the CPU: "
+          f"max |dlogit| {e_logit:.3e}, max |dfield| {e_field:.3e} of the "
+          f"field's largest |value| {scale:.4e}")
+    if e_logit > X_LOGIT_ATOL or e_field > X_FIELD_RTOL:
+        raise AssertionError("the refinement field on the card disagrees "
+                             "with the CPU's")
+
+    have = {lib: importlib.util.find_spec(lib) is not None
+            for lib in ("matplotlib", "tensorboard")}
+    print("   " + "; ".join(
+        f"{lib} is installed here" if ok else
+        f"{lib} is not installed here: its "
+        + ("drawing" if lib == "matplotlib" else "event writing")
+        + " is not run (held against JAX's on the CPU by the tests)"
+        for lib, ok in have.items()))
+    workdir = os.path.join(X_DIR, "viz")
+    cfg = apply_overrides(get_preset("toy2d"), [
+        f"train.steps_per_call={X_VIZ_EVERY}", "train.ckpt_every=0",
+        f"train.viz_every={X_VIZ_EVERY if have['matplotlib'] else 0}",
+        f"train.tensorboard={str(have['tensorboard']).lower()}"]).replace(
+        workdir=workdir)
+    exp = Experiment(cfg, echo_metrics=False)
+    t0 = time.perf_counter()
+    state = exp.train(niters=X_VIZ_ITERS)
+    torch.cuda.synchronize()
+    viz_s = time.perf_counter() - t0
+    files = sorted(os.listdir(workdir))
+    pngs = [f for f in files if f.endswith(".png")]
+    tb = sorted(os.listdir(os.path.join(workdir, "tb"))) \
+        if have["tensorboard"] else []
+    if not have["matplotlib"]:  # the figure's device work all the same
+        exp.bundle.generate(state.g, exp.bundle.sample_z(
+            torch.Generator(device=dev).manual_seed(0), 64))
+        _grid_fields(exp.bundle, state.d, 3.0)
+    print(f"   toy2d train {X_VIZ_ITERS} iterations (viz_every "
+          f"{X_VIZ_EVERY}): {viz_s:.2f} s; figures {pngs}; TensorBoard "
+          f"event files {len(tb)}")
+    want_png = ([f"viz_{s:08d}.png" for s in range(X_VIZ_EVERY,
+                                                   X_VIZ_ITERS + 1,
+                                                   X_VIZ_EVERY)]
+                if have["matplotlib"] else [])
+    if state.step != X_VIZ_ITERS or pngs != want_png or (
+            have["tensorboard"] and not tb):
+        raise AssertionError(f"the toy2d viz run wrote {files}")
+    shutil.rmtree(X_DIR)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["child_s"] = child_s
+    print(f"   phase 6x: {out['seconds']:.1f} s; launches {total}")
+    return total, out
+
+
 def timing(torch, dev):
     from collaborative_gan_sampling_torch.ops import accept as A
     from collaborative_gan_sampling_torch.ops.conv_refine import (
@@ -2405,6 +2677,13 @@ def main() -> None:
     files_launches, files = files_tuning_phase(torch, dev, trained)
     for k, n in files_launches.items():
         launches[k] += n
+    # Phase 6x last: after the export in this process, torch.profiler's
+    # later sessions here lost every device record of a kernel (three
+    # sessions of 10 launches each on one H100).
+    export_launches, exported = export_phase(torch, dev, card, toy_served,
+                                             mnist_served)
+    for k, n in export_launches.items():
+        launches[k] += n
     rows = []
     meta = {
         "conv_refine28": dict(
@@ -2478,6 +2757,13 @@ def main() -> None:
           + ", ".join(f"{m} {r['launches']['drs_accept']}"
                       for m, r in bench.items())
           + f"; launches in the phase {files_launches}")
+    for name in ("mnist", "toy2d"):
+        x = exported[name]
+        print(f"   export ({name} collab serving round, "
+              f"{x['candidates']} candidates): {x['export_s']:.2f} s, "
+              f"{x['bytes']} bytes; a round {1e3 * x['live_round_s']:.2f} "
+              f"ms live, {1e3 * x['reloaded_round_s']:.2f} ms reloaded "
+              f"({card})")
     print(f"   whole script: {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,6 +8,8 @@ the port has:
     cli collab    --config toy2d          # refine + reject + shape
     cli generate  --config toy2d n=100000 out=samples.npz
     cli generate  --config imagenet64 n=4096 class=7   # one class
+    cli export    --config toy2d out=sampler.pt2      # torch.export artifact
+    cli teaser    --config toy2d          # trajectory figures and GIF
     cli eval      --config mnist          # sample refine.method, evaluate
     cli sweep     --config mnist sweep_steps=1,5,10,20,50
     cli tune      --config cifar10 sweep_steps=5,10 tune_rates=0.01,0.02
@@ -17,11 +19,14 @@ the port has:
     cli profile   --config mnist          # torch.profiler trace
     cli presets
 
-Counterpart of the JAX CLI but for ``export``, ``teaser`` and
-``import-tf1``. Any config field is overridable as dotted key=value
-(``config.apply_overrides``); ``data.path=`` points ``mnist`` / ``fmnist``
-at idx files, ``cifar10`` at the python pickles and ``celeba`` /
-``imagenet64`` at a folder of images. Commands after ``train`` but
+Counterpart of the JAX CLI but for ``import-tf1``. ``export`` writes the
+serving round as one ``torch.export`` file (``out=``, ``class=``;
+``sampling/export.py``) for the device it runs on: ``platforms=`` takes
+that one device type (``cuda`` or ``cpu``, as ``--device`` gives it), where
+the JAX CLI lowers for several platforms at once. Any config field is
+overridable as dotted key=value (``config.apply_overrides``);
+``data.path=`` points ``mnist`` / ``fmnist`` at idx files, ``cifar10`` at
+the python pickles and ``celeba`` / ``imagenet64`` at a folder of images. Commands after ``train`` but
 ``inspect`` restore the latest checkpoint of the workdir (one that either
 package wrote) and resume training first if it is behind
 ``train.niters``. ``refine``, ``collab`` and ``eval`` print
@@ -116,6 +121,25 @@ def _inspect(cfg) -> dict:
     }
 
 
+def _check_platforms(platforms: list[str] | None, device: str | None
+                     ) -> None:
+    """``export platforms=``: an artifact serves the one device type it is
+    traced on, so one value, and the one ``--device`` gives (the card
+    unless it says otherwise)."""
+    if platforms is None:
+        return
+    if len(platforms) != 1:
+        raise ValueError(
+            f"export platforms={','.join(platforms)}: a torch.export "
+            "artifact serves one device type, the one it was traced on; "
+            "give one of cuda or cpu and export once per device type")
+    want = (device or "cuda").split(":")[0]
+    if platforms[0] != want:
+        raise ValueError(f"export platforms={platforms[0]} does not match "
+                         f"--device ({want}); the artifact is traced on "
+                         "the device the command runs on")
+
+
 def _tune_result(best: tuple, table: dict, axes: dict) -> dict:
     """``cli tune``'s output: best_k, best_rate and best_<axis> of each
     axis swept in ``axes`` (override key -> values or None), then the grid
@@ -136,8 +160,9 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="cgs-torch")
     parser.add_argument("command", choices=["train", "refine", "collab",
                                             "benchmark", "eval", "sweep",
-                                            "tune", "profile", "generate",
-                                            "inspect", "presets"])
+                                            "tune", "teaser", "profile",
+                                            "generate", "export", "inspect",
+                                            "presets"])
     parser.add_argument("--config", default="toy2d",
                         help=f"preset: {list_presets()}")
     parser.add_argument("--workdir", default="")
@@ -160,6 +185,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     gen_n, gen_out, gen_class = 10_000, "", None
+    exp_out, exp_platforms = "", None
     sweep_steps, tune_rates = [1, 5, 10, 20, 50], None
     axes = {key: None for key, *_ in TUNE_AXES}
     casts = {key: cast for key, *_, cast in TUNE_AXES}
@@ -174,8 +200,12 @@ def main(argv: list[str] | None = None) -> int:
             gen_n = int(val)
         elif args.command == "generate" and key == "out":
             gen_out = val
-        elif args.command == "generate" and key == "class":
+        elif args.command in ("generate", "export") and key == "class":
             gen_class = int(val)
+        elif args.command == "export" and key == "out":
+            exp_out = val
+        elif args.command == "export" and key == "platforms":
+            exp_platforms = val.split(",")
         elif args.command in grid_cmds and key == "sweep_steps":
             sweep_steps = [int(k) for k in val.split(",")]
         elif args.command in grid_cmds[1:] and key == "tune_rates":
@@ -191,6 +221,12 @@ def main(argv: list[str] | None = None) -> int:
         # no device.
         print(json.dumps(_inspect(cfg), indent=2))
         return 0
+
+    if args.command == "export":
+        if not exp_out:
+            print("export requires out=<artifact path>", file=sys.stderr)
+            return 2
+        _check_platforms(exp_platforms, args.device)
 
     from collaborative_gan_sampling_torch.pipeline import Experiment
 
@@ -245,6 +281,16 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.command == "profile":
         print(json.dumps({"trace_dir": exp.profile(state)}))
+        return 0
+
+    if args.command == "teaser":
+        print(json.dumps(exp.teaser(state)))
+        return 0
+
+    if args.command == "export":
+        meta = exp.export(state, exp_out, method=args.method or None,
+                          class_id=gen_class)
+        print(json.dumps({"out": exp_out, **meta}))
         return 0
 
     # generate: the serving path, streaming accepted samples.

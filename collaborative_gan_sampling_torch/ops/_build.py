@@ -14,6 +14,7 @@ when it is not 0 (``check``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# The ``cgs`` namespace of custom ops (``ops/registry.py``); the ops stay
+# registered while this object lives.
+OPS = torch.library.Library("cgs", "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake) -> None:
+    """Define the op ``cgs::<schema>`` with its CPU implementation (the
+    plain version), its CUDA implementation (the kernel's launch) and its
+    fake implementation (the output shapes, for ``torch.export``). The
+    implementations are registered on the dispatcher directly: no autograd
+    formula (the outputs need none) and no Python layer between the
+    dispatcher and them, which ``torch.library.custom_op`` adds (~20 us a
+    call on a CPU host)."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"cgs::{name}", fake, lib=OPS)
 
 
 def _nvcc() -> str:
@@ -108,9 +128,38 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
+def unaliased(x0, out):
+    """A plain version's (x_K, logits) as an op's outputs, which may not
+    alias its inputs: x_K is x0 itself at K = 0."""
+    x_k, logits = out
+    return (x_k.clone() if x_k.data_ptr() == x0.data_ptr() else x_k), logits
+
+
+def check_device(t, what: str) -> None:
+    """An op has a CUDA and a CPU implementation and no other: raise the
+    wrappers' error for a tensor elsewhere (before the dispatcher would
+    take a fake implementation for it)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {t.device}")
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@contextlib.contextmanager
+def autograd_inside_op():
+    """Lets autograd record inside a custom op's implementation, which the
+    dispatcher runs below the autograd keys (``torch.autograd.grad`` there
+    would find no graph): for the plain versions that refine by autograd."""
+    exclude = torch._C._dispatch_tls_local_exclude_set()
+    for key in (torch._C.DispatchKey.AutogradFunctionality,
+                torch._C.DispatchKey.ADInplaceOrView):
+        exclude = exclude.remove(key)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), exclude):
+        yield

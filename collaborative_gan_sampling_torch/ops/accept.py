@@ -15,12 +15,18 @@ gamma plus, where ``gamma_percentile`` > 0, that percentile of the batch's
 expm1-form shift (``drs_logit_shift``), composed as ``gamma_total_plain``
 composes it. Up to ``STEP_CAP`` logits the whole step, percentile included,
 is one launch (one block sorts the batch in shared memory); above it the
-percentile is taken with tensor ops and the kernel gets gamma_total. Both
-routes count on the entry's ``launches``. The plain versions (``*_plain``)
-reproduce the Philox bits exactly with int64 tensor arithmetic, so the
-card's masks can be held against them element by element. A wrapper takes
-the plain version for tensors on the CPU and launches the kernel for
-tensors on the card.
+percentile is taken with tensor ops and the kernel gets gamma_total. The
+plain versions (``*_plain``) reproduce the Philox bits exactly with int64
+tensor arithmetic, so the card's masks can be held against them element by
+element.
+
+Each entry is a ``torch.library`` custom op, ``cgs::drs_accept_philox`` and
+``cgs::drs_accept_from_uniform`` (``ops/registry.py``): its CUDA
+implementation launches the kernel and counts on the wrapper's ``launches``
+(so a launch from a reloaded ``torch.export`` artifact counts too), its CPU
+implementation is the plain version, and its fake implementation gives the
+shapes to ``torch.export``. Each returns (mask, gamma_total) and writes no
+input; the wrapper copies gamma_total to ``gamma_out``.
 """
 
 from __future__ import annotations
@@ -207,12 +213,84 @@ def _accept(logits, logit_max, gamma, eps, gamma_percentile, gamma_out,
     return out
 
 
+def _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile, seed=None,
+               uniforms=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ops' CUDA implementation: (mask, gamma_total), both allocated
+    here."""
+    _check(logits)
+    g_out = torch.empty(1, dtype=torch.float32, device=logits.device)
+    out = _accept(logits, m, gamma if gamma_t is None else gamma_t, eps,
+                  gamma_percentile, g_out, seed=seed, uniforms=uniforms)
+    return out, g_out
+
+
+def _cpu_impl(plain):
+    """An op's CPU implementation: the plain version ``plain``, returning
+    (mask, gamma_total) as new tensors."""
+    def cpu(draw, logits, m, gamma_t, gamma, eps, gamma_percentile):
+        g = torch.empty(1, dtype=torch.float32, device=logits.device)
+        mask = plain(draw, logits, m, gamma if gamma_t is None else gamma_t,
+                     eps, gamma_percentile, gamma_out=g)
+        return mask, g
+
+    return cpu
+
+
+def _philox_cuda(seed, logits, m, gamma_t, gamma, eps, gamma_percentile):
+    out = _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
+                     seed=seed.contiguous())
+    drs_accept_mask_philox.launches += 1
+    return out
+
+
+def _from_uniform_cuda(uniforms, logits, m, gamma_t, gamma, eps,
+                       gamma_percentile):
+    if uniforms.shape != logits.shape or uniforms.dtype != torch.float32:
+        raise ValueError("uniforms must be float32 of the logits' shape")
+    out = _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
+                     uniforms=uniforms.contiguous())
+    drs_accept_mask_from_uniform.launches += 1
+    return out
+
+
+def _accept_fake(draw, logits, m, gamma_t, gamma, eps, gamma_percentile):
+    return (logits.new_empty(logits.shape, dtype=torch.bool),
+            logits.new_empty((1,), dtype=torch.float32))
+
+
+_ACCEPT_ARGS = ("Tensor logits, Tensor m, Tensor? gamma_t, float gamma, "
+                "float eps, float gamma_percentile) -> (Tensor, Tensor)")
+_build.define_op("drs_accept_philox(Tensor seed, " + _ACCEPT_ARGS,
+                 _cpu_impl(drs_accept_mask_philox_plain), _philox_cuda,
+                 _accept_fake)
+_build.define_op("drs_accept_from_uniform(Tensor uniforms, " + _ACCEPT_ARGS,
+                 _cpu_impl(drs_accept_mask_from_uniform_plain),
+                 _from_uniform_cuda, _accept_fake)
+
+
 def _check_gamma_out(gamma_out, logits) -> None:
     if gamma_out is not None and (
             gamma_out.shape != (1,) or gamma_out.dtype != torch.float32
             or gamma_out.device != logits.device):
         raise ValueError("gamma_out must be a (1,) float32 tensor on "
                          f"{logits.device}")
+
+
+def _call(op, draw, logits, logit_max, gamma, eps, gamma_percentile,
+          gamma_out) -> torch.Tensor:
+    """One call of ``op``: M and a device gamma as (1,) float32 on the
+    logits' device, a float gamma as a float; gamma_total copied to
+    ``gamma_out`` where given."""
+    _build.check_device(logits, "DRS accept")
+    _check_gamma_out(gamma_out, logits)
+    gamma_t = (_scalar(gamma, logits) if isinstance(gamma, torch.Tensor)
+               else None)
+    mask, g = op(draw.to(logits.device), logits, _scalar(logit_max, logits),
+                 gamma_t, 0.0 if gamma_t is not None else float(gamma),
+                 float(eps), float(gamma_percentile))
+    if gamma_out is not None:
+        gamma_out.copy_(g)
+    return mask
 
 
 def drs_accept_mask_philox(seed: torch.Tensor, logits: torch.Tensor,
@@ -224,16 +302,9 @@ def drs_accept_mask_philox(seed: torch.Tensor, logits: torch.Tensor,
     the Philox key ``seed`` (see ``draw_seed``); gamma_total = gamma (a
     float or a device scalar) plus the ``gamma_percentile`` term, written to
     ``gamma_out`` where given."""
-    if logits.device.type == "cpu":
-        return drs_accept_mask_philox_plain(seed, logits, logit_max, gamma,
-                                            eps, gamma_percentile, gamma_out)
-    _check(logits)
-    _check_gamma_out(gamma_out, logits)
-    seed = seed.to(logits.device, torch.int64).reshape(1).contiguous()
-    out = _accept(logits, logit_max, gamma, eps, gamma_percentile,
-                  gamma_out, seed=seed)
-    drs_accept_mask_philox.launches += 1
-    return out
+    return _call(torch.ops.cgs.drs_accept_philox,
+                 seed.to(torch.int64).reshape(1), logits, logit_max, gamma,
+                 eps, gamma_percentile, gamma_out)
 
 
 def drs_accept_mask_from_uniform(uniforms: torch.Tensor, logits: torch.Tensor,
@@ -243,19 +314,8 @@ def drs_accept_mask_from_uniform(uniforms: torch.Tensor, logits: torch.Tensor,
                                  ) -> torch.Tensor:
     """Accept mask from caller-supplied uniforms (the parity entry), with
     the same gamma_total as ``drs_accept_mask_philox``."""
-    if logits.device.type == "cpu":
-        return drs_accept_mask_from_uniform_plain(uniforms, logits,
-                                                  logit_max, gamma, eps,
-                                                  gamma_percentile, gamma_out)
-    _check(logits)
-    _check_gamma_out(gamma_out, logits)
-    if uniforms.shape != logits.shape or uniforms.dtype != torch.float32:
-        raise ValueError("uniforms must be float32 of the logits' shape")
-    u = uniforms.to(logits.device).contiguous()
-    out = _accept(logits, logit_max, gamma, eps, gamma_percentile,
-                  gamma_out, uniforms=u)
-    drs_accept_mask_from_uniform.launches += 1
-    return out
+    return _call(torch.ops.cgs.drs_accept_from_uniform, uniforms, logits,
+                 logit_max, gamma, eps, gamma_percentile, gamma_out)
 
 
 drs_accept_mask_philox.launches = 0

@@ -21,9 +21,16 @@ Two kernels replace the TPU kernels of
   (``pack_conv1_bf16``), in the order the kernel takes them
   (``vjp_schedule``).
 
-Each wrapper takes its plain version for a tensor on the CPU and launches
-its kernel for a tensor on the card; it never falls back from the card to
-the plain version. ``supports_conv_refine_kernel`` is the gate that
+Each kernel is a ``torch.library`` custom op, ``cgs::conv_refine28`` and
+``cgs::conv_refine28_bf16`` (``ops/registry.py``), over x0, the folded
+weights as a ``Tensor[]`` (``FoldedConvD``'s order), the step count and the
+run-time rate: its CUDA implementation packs the weights and launches the
+kernel, counting on the wrapper's ``launches`` (a launch from a reloaded
+``torch.export`` artifact counts too); its CPU implementation is the plain
+version; its fake implementation gives the shapes. The wrappers call the
+op, so a tensor on the CPU takes the plain version and a tensor on the card
+launches the kernel or raises: nothing falls back from the card to the
+plain version. ``supports_conv_refine_kernel`` is the gate that
 ``sampling/refine.py`` dispatches on; the model's compute dtype picks the
 kernel.
 """
@@ -117,6 +124,30 @@ def _launch(name: str, x0: torch.Tensor, weights: list[torch.Tensor],
     return x_out, logits
 
 
+def _refine_fake(x0, weights, steps, rate):
+    return torch.empty_like(x0), x0.new_empty(x0.shape[0])
+
+
+def _conv_refine28_cpu(x0, weights, steps, rate):
+    with _build.autograd_inside_op():
+        return _build.unaliased(x0, refine_conv28_plain(FoldedConvD(*weights), x0,
+                                                  steps, rate))
+
+
+def _conv_refine28_cuda(x0, weights, steps, rate):
+    _check_x0(x0, "conv refine")
+    out = _launch("conv_refine28", x0, pack_f32_refine_weights(
+        FoldedConvD(*weights), x0.device), steps, rate)
+    fused_refine_conv28.launches += 1
+    return out
+
+
+_REFINE_ARGS = ("(Tensor x0, Tensor[] weights, int steps, float rate) -> "
+                "(Tensor, Tensor)")
+_build.define_op("conv_refine28" + _REFINE_ARGS, _conv_refine28_cpu,
+                 _conv_refine28_cuda, _refine_fake)
+
+
 def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
                         rate) -> tuple[torch.Tensor, torch.Tensor]:
     """K refinement steps under the folded D, float32 throughout.
@@ -125,13 +156,9 @@ def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
     Returns (x_K, logits (B,)). ``rate`` is a float or a 0-d tensor, passed
     to the kernel at run time; the weights are packed on the device by
     ``pack_f32_refine_weights``."""
-    if x0.device.type == "cpu":
-        return refine_conv28_plain(params, x0, steps, rate)
-    _check_x0(x0, "conv refine")
-    out = _launch("conv_refine28", x0,
-                  pack_f32_refine_weights(params, x0.device), steps, rate)
-    fused_refine_conv28.launches += 1
-    return out
+    _build.check_device(x0, "conv refine")
+    return torch.ops.cgs.conv_refine28(x0, list(params), int(steps),
+                                       float(rate))
 
 
 fused_refine_conv28.launches = 0
@@ -249,6 +276,24 @@ def pack_bf16_refine_weights(params: FoldedConvD, dev) -> list[torch.Tensor]:
             wd, bd]
 
 
+def _conv_refine28_bf16_cpu(x0, weights, steps, rate):
+    return _build.unaliased(x0, refine_conv28_plain_bf16(FoldedConvD(*weights), x0,
+                                                   steps, rate))
+
+
+def _conv_refine28_bf16_cuda(x0, weights, steps, rate):
+    _check_x0(x0, "bf16 conv refine")
+    out = _launch("conv_refine28_bf16", x0, pack_bf16_refine_weights(
+        FoldedConvD(*weights), x0.device), steps, rate)
+    fused_refine_conv28_bf16.launches += 1
+    return out
+
+
+_build.define_op("conv_refine28_bf16" + _REFINE_ARGS,
+                 _conv_refine28_bf16_cpu, _conv_refine28_bf16_cuda,
+                 _refine_fake)
+
+
 def fused_refine_conv28_bf16(params: FoldedConvD, x0: torch.Tensor,
                              steps: int, rate
                              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -256,13 +301,9 @@ def fused_refine_conv28_bf16(params: FoldedConvD, x0: torch.Tensor,
     float32 sums (the TPU kernel's ``bf16=True`` mode). The same contract as
     ``fused_refine_conv28``; the weights are rounded to bf16 and packed on
     the device by ``pack_bf16_refine_weights``."""
-    if x0.device.type == "cpu":
-        return refine_conv28_plain_bf16(params, x0, steps, rate)
-    _check_x0(x0, "bf16 conv refine")
-    out = _launch("conv_refine28_bf16", x0,
-                  pack_bf16_refine_weights(params, x0.device), steps, rate)
-    fused_refine_conv28_bf16.launches += 1
-    return out
+    _build.check_device(x0, "bf16 conv refine")
+    return torch.ops.cgs.conv_refine28_bf16(x0, list(params), int(steps),
+                                            float(rate))
 
 
 fused_refine_conv28_bf16.launches = 0

@@ -18,10 +18,17 @@ tensors, ``mlp_layers(d)``: per layer the ``(out, in)`` weight and the bias,
 the head last, read where they lie at each launch (so in-place updates of D
 between calls need no cache). ``refine_mlp_plain`` takes the ``(in, out)``
 form of the JAX package's kernels; ``plain_params`` maps the first form to
-the second. ``fused_refine_mlp`` takes the plain version for a tensor on the
-CPU and launches the kernel for a tensor on the card; it never falls back
-from the card to the plain version. ``supports_mlp_refine_kernel`` is the
-gate that ``sampling/refine.py`` dispatches on.
+the second. The kernel is the ``torch.library`` custom op
+``cgs::refine_mlp`` (``ops/registry.py``) over x0, the layers' weights and
+biases as two ``Tensor[]``, the step count and the run-time rate: its CUDA
+implementation launches the kernel and counts on ``fused_refine_mlp``'s
+``launches`` (a launch from a reloaded ``torch.export`` artifact counts
+too), its CPU implementation is the plain version, its fake implementation
+gives the shapes. ``fused_refine_mlp`` calls the op, so a tensor on the CPU
+takes the plain version and a tensor on the card launches the kernel or
+raises; it never falls back from the card to the plain version.
+``supports_mlp_refine_kernel`` is the gate that ``sampling/refine.py``
+dispatches on.
 """
 
 from __future__ import annotations
@@ -249,20 +256,16 @@ def _launch(layers: MLPLayers, x0: torch.Tensor, steps: int, rate,
     return x_out, logits
 
 
-def fused_refine_mlp(layers: MLPLayers, x0: torch.Tensor, steps: int,
-                     rate) -> tuple[torch.Tensor, torch.Tensor]:
-    """K refinement steps under the MLP D given as ``mlp_layers(d)``.
-    x0: (B, d) float32.
+def _refine_mlp_cpu(x0, weights, biases, steps, rate):
+    return _build.unaliased(x0, refine_mlp_plain(
+        plain_params(list(zip(weights, biases))), x0, steps, rate))
 
-    Returns (x_K, logits (B,)). ``rate`` is a float or a 0-d tensor, passed
-    to the kernel at run time."""
-    if x0.device.type == "cpu":
-        return refine_mlp_plain(plain_params(layers), x0, steps, rate)
-    if x0.device.type != "cuda":
-        raise ValueError(f"no MLP refine kernel for device {x0.device}")
+
+def _refine_mlp_cuda(x0, weights, biases, steps, rate):
     if x0.dtype != torch.float32 or x0.ndim != 2:
         raise ValueError("MLP refine kernel takes (B, d) float32, got "
                          f"{tuple(x0.shape)} {x0.dtype}")
+    layers = list(zip(weights, biases))
     hidden, relu = check_layers(layers, x0)
     x0 = x0.contiguous()
     plan = launch_plan(x0.shape[0], x0.shape[1], hidden, relu,
@@ -271,6 +274,28 @@ def fused_refine_mlp(layers: MLPLayers, x0: torch.Tensor, steps: int,
     out = _launch(layers, x0, steps, rate, plan)
     fused_refine_mlp.launches += 1
     return out
+
+
+def _refine_mlp_fake(x0, weights, biases, steps, rate):
+    return torch.empty_like(x0), x0.new_empty(x0.shape[0])
+
+
+_build.define_op("refine_mlp(Tensor x0, Tensor[] weights, Tensor[] biases, "
+                 "int steps, float rate) -> (Tensor, Tensor)",
+                 _refine_mlp_cpu, _refine_mlp_cuda, _refine_mlp_fake)
+
+
+def fused_refine_mlp(layers: MLPLayers, x0: torch.Tensor, steps: int,
+                     rate) -> tuple[torch.Tensor, torch.Tensor]:
+    """K refinement steps under the MLP D given as ``mlp_layers(d)``.
+    x0: (B, d) float32.
+
+    Returns (x_K, logits (B,)). ``rate`` is a float or a 0-d tensor, passed
+    to the kernel at run time."""
+    _build.check_device(x0, "MLP refine")
+    return torch.ops.cgs.refine_mlp(x0, [w for w, _ in layers],
+                                    [b for _, b in layers], int(steps),
+                                    float(rate))
 
 
 fused_refine_mlp.launches = 0

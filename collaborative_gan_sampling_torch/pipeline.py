@@ -33,10 +33,13 @@ training and sampling phases:
   best, warning and extensions, and caches that cross between the two);
 * ``benchmark``: the five methods side by side into ``benchmark.jsonl``
   (JAX ``:1007-1019``), and ``profile``: a ``torch.profiler`` trace of
-  train chunks and one refinement run (JAX ``:773-795``).
+  train chunks and one refinement run (JAX ``:773-795``);
+* ``export``: the serving round as a self-contained ``torch.export``
+  artifact (``sampling/export.py``; JAX ``:329-362``);
+* figures: ``train.viz_every`` (a sample grid, or for 2D the overview, every
+  that many iterations; JAX ``:748-770``), ``train.tensorboard`` (the
+  metrics mirrored to ``<workdir>/tb``) and ``teaser`` (JAX ``:797-833``).
 
-Export and the figures are not ported yet; they raise
-``NotImplementedError``.
 Everything runs on the card unless ``device`` says otherwise.
 """
 
@@ -106,10 +109,6 @@ from collaborative_gan_sampling_torch.utils.weights import (
     load_jax_variables,
     to_jax_variables,
 )
-
-# The JAX Experiment's methods that the port does not have yet.
-_NOT_PORTED = ("export", "teaser")
-
 
 def shaped_d_path(workdir: str) -> str:
     """Where a workdir's persisted shaped discriminator lives."""
@@ -208,12 +207,6 @@ class Experiment:
 
         self.data_fn = data_fn
 
-    def __getattr__(self, name):
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"Experiment.{name} is not ported to PyTorch yet")
-        raise AttributeError(name)
-
     # -- training -----------------------------------------------------------
 
     def train(self, niters: int | None = None, resume: bool = True,
@@ -222,12 +215,10 @@ class Experiment:
         the latest checkpoint when ``resume``. A log line goes to
         ``train.jsonl`` every ``log_every`` iterations (and at the end) with
         the chunk's mean metrics and the iterations per second since the
-        previous line; checkpoints every ``ckpt_every`` and at the end."""
+        previous line (mirrored to ``<workdir>/tb`` with
+        ``train.tensorboard``); checkpoints every ``ckpt_every`` and at the
+        end; figures every ``viz_every`` (``_training_viz``)."""
         cfg = self.cfg
-        if cfg.train.tensorboard:
-            raise NotImplementedError("TensorBoard mirroring is not ported")
-        if cfg.train.viz_every:
-            raise NotImplementedError("training figures are not ported yet")
         niters = niters if niters is not None else cfg.train.niters
         if state is None:
             state = create_train_state(self.bundle, cfg.train, self.seed)
@@ -241,7 +232,12 @@ class Experiment:
                                  self.seed)
         # From-scratch runs truncate the log; resumes append to it.
         writer = MetricsWriter(os.path.join(self.workdir, "train.jsonl"),
-                               echo=self._echo, append=state.step > 0)
+                               echo=self._echo,
+                               tensorboard_dir=(os.path.join(self.workdir,
+                                                             "tb")
+                                                if cfg.train.tensorboard
+                                                else None),
+                               append=state.step > 0)
         tail_chunk = None
         t_last, step_last = time.perf_counter(), state.step
         try:
@@ -269,6 +265,8 @@ class Experiment:
                 if cfg.train.ckpt_every and (
                         step % cfg.train.ckpt_every < spc or step >= niters):
                     save_checkpoint(self.ckpt_dir, step, state, config=cfg)
+                if cfg.train.viz_every and step % cfg.train.viz_every < spc:
+                    self._training_viz(state, step)
         finally:
             writer.close()
         return state
@@ -328,15 +326,7 @@ class Experiment:
         samples (and labels) to an .npz."""
         method = method or self.cfg.refine.method
         gen = generator or step_generator(self.seed, 9, "eval", self.device)
-        d = state.d
-        if method == "collab" and not (use_shaped_d
-                                       or os.path.exists(shaped_d_path(
-                                           self.workdir))):
-            res = self.sample(state, method="collab", generator=gen)
-            self.save_shaped_d(res)
-            d = res.aux["shaped_d"]
-        elif method == "collab" or use_shaped_d:
-            d = self.load_shaped_d(template=state.d)
+        d = self._serving_d(state, method, use_shaped_d, gen)
         srv = ServingSampler(self.bundle, self.cfg.refine, method=method,
                              class_id=class_id)
         samples, labels, stats = srv.generate(sampling_g(state), d, gen, n)
@@ -347,6 +337,42 @@ class Experiment:
             np.savez(out, **arrays)
             stats["out"] = out
         return samples, labels, stats
+
+    def export(self, state: TrainState, out: str, method: str | None = None,
+               use_shaped_d: bool = False, class_id: int | None = None,
+               generator: torch.Generator | None = None) -> dict:
+        """The serving round as a self-contained ``torch.export`` artifact
+        at ``out`` (``sampling/export.py``): the weights, the DRS
+        calibration and, for collab, the shaped D baked in. The shaped D is
+        found or made as ``generate`` does it, from the same generator, by
+        default ``step_generator(seed, 11, "eval")``. Returns the sidecar
+        meta dict."""
+        from collaborative_gan_sampling_torch.sampling.export import (
+            export_sampler,
+        )
+
+        method = method or self.cfg.refine.method
+        gen = generator or step_generator(self.seed, 11, "eval",
+                                          self.device)
+        d = self._serving_d(state, method, use_shaped_d, gen)
+        srv = ServingSampler(self.bundle, self.cfg.refine, method=method,
+                             class_id=class_id)
+        return export_sampler(srv, sampling_g(state), d, gen, out)
+
+    def _serving_d(self, state: TrainState, method: str, use_shaped_d: bool,
+                   generator: torch.Generator) -> torch.nn.Module:
+        """The D that serving runs under: for collab the persisted shaped
+        D, or else one collab pass (drawing from ``generator``) shapes and
+        persists it; the persisted one for any method with
+        ``use_shaped_d``; else the trained D."""
+        if method == "collab" and not (use_shaped_d or os.path.exists(
+                shaped_d_path(self.workdir))):
+            res = self.sample(state, method="collab", generator=generator)
+            self.save_shaped_d(res)
+            return res.aux["shaped_d"]
+        if method == "collab" or use_shaped_d:
+            return self.load_shaped_d(template=state.d)
+        return state.d
 
     # -- shaped-D persistence -----------------------------------------------
 
@@ -836,3 +862,72 @@ class Experiment:
             with record_function("refinement"):
                 block(self.sample(state, method="refinement").samples)
         return logdir
+
+    # -- figures ------------------------------------------------------------
+
+    def _training_viz(self, state: TrainState, step: int) -> None:
+        """The periodic training figure: 64 samples of the live G from
+        ``step_generator(seed, step, "eval")`` as a grid
+        (``samples_<step>.png``), or for 2D the overview with 512 real
+        points (``viz_<step>.png``)."""
+        from collaborative_gan_sampling_torch.viz import (
+            plot_2d_overview,
+            save_image_grid,
+        )
+
+        gen = step_generator(self.seed, step, "eval", self.device)
+        n = 64
+        z = self.bundle.sample_z(gen, n)
+        labels = (self.bundle.sample_labels(fold_generator(gen, 1), n)
+                  if self.bundle.conditional else None)
+        with torch.no_grad():
+            x = self.bundle.generate(state.g, z, labels, train=False)
+        if self.is_2d:
+            x_real, _ = self.data_fn(fold_generator(gen, 2), 512)
+            plot_2d_overview(
+                os.path.join(self.workdir, f"viz_{step:08d}.png"),
+                self.bundle, state.d, self.spec, x_real, x,
+                title=f"step {step}")
+        else:
+            save_image_grid(
+                os.path.join(self.workdir, f"samples_{step:08d}.png"), x)
+
+    def teaser(self, state: TrainState | None = None,
+               n_points: int = 256) -> dict[str, str]:
+        """The 2D figures: refinement trajectories, the overview and the
+        animated teaser of ``n_points`` samples from
+        ``step_generator(seed, 2, "eval")``. The refinement runs through
+        ``make_refine_fn(..., return_trajectory=True)`` with the kernels
+        off (``use_pallas=False``, as the JAX package sets it): a kernel
+        returns only x_K, not the steps between."""
+        if not self.is_2d:
+            raise ValueError("teaser is a 2D-stack artifact")
+        from collaborative_gan_sampling_torch.sampling.refine import (
+            make_refine_fn,
+        )
+        from collaborative_gan_sampling_torch.viz import (
+            plot_2d_overview,
+            plot_refinement_trajectories,
+            save_teaser_gif,
+        )
+
+        state = state if state is not None else self.load_or_train()
+        gen = step_generator(self.seed, 2, "eval", self.device)
+        rcfg = dataclasses.replace(self.cfg.refine, use_pallas=False)
+        refine = make_refine_fn(self.bundle, rcfg, return_trajectory=True)
+        z = self.bundle.sample_z(gen, n_points)
+        with torch.no_grad():
+            x0 = self.bundle.generate(sampling_g(state), z)
+        x_k, aux = refine(state.d, x0)
+        x_real, _ = self.data_fn(fold_generator(gen, 1), n_points * 4)
+        traj_path = plot_refinement_trajectories(
+            os.path.join(self.workdir, "teaser_trajectories.png"),
+            aux["traj"], self.spec)
+        overview_path = plot_2d_overview(
+            os.path.join(self.workdir, "overview.png"), self.bundle, state.d,
+            self.spec, x_real, x0, x_k,
+            title=f"{self.cfg.name} @ step {state.step}")
+        gif_path = save_teaser_gif(
+            os.path.join(self.workdir, "teaser.gif"), aux["traj"], self.spec)
+        return {"trajectories": traj_path, "overview": overview_path,
+                "gif": gif_path}

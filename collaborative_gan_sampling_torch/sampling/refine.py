@@ -24,8 +24,9 @@ G(z_K):
 
 with the same clipping, noise, stop score and a proximal pull toward z_0;
 each step is one autograd graph through G and D, both in eval mode.
+``make_refine_z_fn`` refines from a given z in either space, and
 ``make_draw_refine_fn`` draws z (and, for a conditional pair, labels unless
-the caller gives them) and refines in either space; ``refine_samples`` is
+the caller gives them) first; ``refine_samples`` is
 the one-shot call of ``make_refine_fn``.
 """
 
@@ -81,8 +82,12 @@ def _freeze_stopped(x_new: torch.Tensor, x: torch.Tensor,
                        x_new, x)
 
 
-def _normal_like(x: torch.Tensor,
-                 generator: torch.Generator | None) -> torch.Tensor:
+def _normal_like(x: torch.Tensor, generator) -> torch.Tensor:
+    """N(0, I) of x's shape from ``generator``: a ``torch.Generator`` (or
+    None, the global one), or a function of x that draws them itself (the
+    seeded serving round's ``utils/prng.py::PhiloxNormals``)."""
+    if callable(generator):
+        return generator(x)
     return torch.randn(x.shape, generator=generator, device=x.device,
                        dtype=x.dtype)
 
@@ -160,21 +165,18 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
     return refine
 
 
-def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
-    """Build ``draw_refine(g, d, generator, n, labels=None, rate=None)
-    -> (x, labels, logits)``: z ~ N(0, I) (then labels, for a conditional
-    pair given none), and K refinement steps of x0 = G(z) (``space='x'``)
-    or of z, emitting G(z_K) (``space='z'``)."""
+def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
+    """Build ``refine_z(g, d, z, labels=None, generator=None, rate=None)
+    -> (x, logits)``: K refinement steps of x0 = G(z) (``space='x'``) or
+    of z, emitting G(z_K) (``space='z'``); ``generator`` serves the
+    Langevin noise only."""
     if cfg.space not in ("x", "z"):
         raise ValueError(f"refine.space must be 'x' or 'z', got "
                          f"{cfg.space!r}")
     refine = make_refine_fn(bundle, cfg)
 
-    def draw_refine(g, d, generator: torch.Generator | None, n: int,
-                    labels: torch.Tensor | None = None, rate=None):
-        z = bundle.sample_z(generator, n)
-        if labels is None:
-            labels = bundle.sample_labels(generator, n)
+    def refine_z(g, d, z: torch.Tensor, labels: torch.Tensor | None = None,
+                 generator=None, rate=None):
         if cfg.space == "z":
             rate = cfg.rate if rate is None else rate
 
@@ -186,12 +188,28 @@ def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
                          generator, rate)
             with torch.no_grad():
                 x = bundle.generate(g, z, labels, train=False)
-                return x, labels, bundle.discriminate(d, x, labels,
-                                                      train=False)
+                return x, bundle.discriminate(d, x, labels, train=False)
         with torch.no_grad():
             x0 = bundle.generate(g, z, labels, train=False)
         x, aux = refine(d, x0, labels, generator=generator, rate=rate)
-        return x, labels, aux["logits"]
+        return x, aux["logits"]
+
+    return refine_z
+
+
+def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
+    """Build ``draw_refine(g, d, generator, n, labels=None, rate=None)
+    -> (x, labels, logits)``: z ~ N(0, I) (then labels, for a conditional
+    pair given none), and ``make_refine_z_fn``'s refinement of z."""
+    refine_z = make_refine_z_fn(bundle, cfg)
+
+    def draw_refine(g, d, generator: torch.Generator | None, n: int,
+                    labels: torch.Tensor | None = None, rate=None):
+        z = bundle.sample_z(generator, n)
+        if labels is None:
+            labels = bundle.sample_labels(generator, n)
+        x, logits = refine_z(g, d, z, labels, generator, rate)
+        return x, labels, logits
 
     return draw_refine
 

@@ -17,11 +17,13 @@ from typing import Callable
 import torch
 
 from collaborative_gan_sampling_torch.ops.accept import (
+    bits_to_uniform,
     draw_seed,
     drs_accept_mask_from_uniform,
     drs_accept_mask_philox,
     drs_logit_shift,
     gamma_total,
+    philox_bits_plain,
 )
 
 
@@ -36,7 +38,8 @@ def drs_acceptance_prob(logits: torch.Tensor, logit_max, gamma: float = 0.0,
 def drs_accept_mask(generator: torch.Generator | None, logits: torch.Tensor,
                     logit_max, gamma: float = 0.0, eps: float = 1e-6,
                     gamma_percentile: float = 0.0, use_pallas: bool = False,
-                    uniforms: torch.Tensor | None = None) -> torch.Tensor:
+                    uniforms: torch.Tensor | None = None,
+                    seed: torch.Tensor | None = None) -> torch.Tensor:
     """Boolean accept mask, same shape as logits.
 
     With ``use_pallas`` and 1-D logits the whole step runs as the DRS accept
@@ -44,17 +47,22 @@ def drs_accept_mask(generator: torch.Generator | None, logits: torch.Tensor,
     shift, sigmoid, draw and compare in one launch up to ``STEP_CAP``
     logits (above it the percentile is taken with tensor ops first), u
     drawn inside it from a key taken from ``generator``. Otherwise u is
-    drawn with ``torch.rand``. ``uniforms`` replaces the draw in either
-    case."""
+    drawn with ``torch.rand``. ``seed`` (an int64 Philox key) replaces the
+    key's draw, and off the kernel gives u as the kernel draws it;
+    ``uniforms`` replaces the draw in either case."""
     if use_pallas and logits.ndim == 1:
         if uniforms is not None:
             return drs_accept_mask_from_uniform(uniforms, logits, logit_max,
                                                 gamma, eps, gamma_percentile)
-        return drs_accept_mask_philox(draw_seed(generator, logits.device),
-                                      logits, logit_max, gamma, eps,
+        if seed is None:
+            seed = draw_seed(generator, logits.device)
+        return drs_accept_mask_philox(seed, logits, logit_max, gamma, eps,
                                       gamma_percentile)
     p = drs_acceptance_prob(logits, logit_max, gamma, eps, gamma_percentile)
-    if uniforms is None:
+    if uniforms is None and seed is not None:
+        uniforms = bits_to_uniform(philox_bits_plain(
+            seed, logits.numel())).reshape(logits.shape)
+    elif uniforms is None:
         uniforms = torch.rand(logits.shape, generator=generator,
                               device=logits.device)
     return uniforms < p

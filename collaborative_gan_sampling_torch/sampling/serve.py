@@ -21,6 +21,14 @@ A conditional pair serves random labels, or with ``class_id`` that one
 class for every sample (targeted serving); with ``per_class_drs`` M is one
 per class and folds into the logits. MH-GAN is not offered, as in the JAX
 package.
+
+A round is a pure function of its draws (``_round_from``: z, labels and
+each batch's Philox key of the accept step). ``round`` draws them from a
+``torch.Generator`` as it goes; ``round_seeded`` derives them from one
+int64 seed tensor by counter-based Philox on tensor ops
+(``utils/prng.py``), which is what ``sampling/export.py`` traces into its
+artifact: a ``torch.Generator`` cannot be an input of an exported program.
+The two give different draws, as JAX's artifact draws from its own key.
 """
 
 from __future__ import annotations
@@ -33,13 +41,19 @@ from collaborative_gan_sampling_torch.config import RefineConfig
 from collaborative_gan_sampling_torch.data.images import denormalize_images
 from collaborative_gan_sampling_torch.models import GANBundle
 from collaborative_gan_sampling_torch.sampling.refine import (
-    make_draw_refine_fn,
+    make_refine_z_fn,
 )
 from collaborative_gan_sampling_torch.sampling.rejection import (
     drs_accept_mask,
     estimate_logit_max,
     estimate_logit_max_per_class,
     fold_per_class,
+)
+from collaborative_gan_sampling_torch.utils.prng import (
+    PhiloxNormals,
+    philox_keys,
+    philox_normal,
+    philox_randint,
 )
 
 SERVING_METHODS = ("standard", "refinement", "reject", "collab")
@@ -52,6 +66,7 @@ class ServingSampler:
         srv = ServingSampler(bundle, cfg, method="collab")
         m = srv.calibrate(g, shaped_d, generator)           # burn-in, once
         x, labels, acc, logits = srv.round(g, shaped_d, m, generator)
+        x, labels, acc, logits = srv.round_seeded(g, shaped_d, m, seed)
         samples, labels, stats = srv.generate(g, shaped_d, generator, n)
     """
 
@@ -70,8 +85,8 @@ class ServingSampler:
         self._refine_on = method in ("refinement", "collab")
         self._reject_on = method in ("reject", "collab")
         self._per_class = cfg.per_class_drs and bundle.conditional
-        self._draw_refine = (make_draw_refine_fn(bundle, cfg)
-                             if self._refine_on else None)
+        self._refine_z = (make_refine_z_fn(bundle, cfg)
+                          if self._refine_on else None)
 
     def _labels_for(self, generator, n: int) -> torch.Tensor | None:
         """Every sample ``class_id``, or random labels (None when
@@ -81,17 +96,35 @@ class ServingSampler:
                               device=self.bundle.device)
         return self.bundle.sample_labels(generator, n)
 
-    def _draw_score(self, g, d, generator, n: int):
-        """One candidate batch, its labels and its final logits (refined
-        when on)."""
-        labels = self._labels_for(generator, n)
+    def _score(self, g, d, z, labels, generator):
+        """One candidate batch from its z and labels, and its final logits
+        (refined when on; ``generator`` serves the refinement's noise)."""
         if self._refine_on:
-            return self._draw_refine(g, d, generator, n, labels=labels)
-        z = self.bundle.sample_z(generator, n)
+            return self._refine_z(g, d, z, labels, generator)
         with torch.no_grad():
             x = self.bundle.generate(g, z, labels, train=False)
-            return x, labels, self.bundle.discriminate(d, x, labels,
-                                                       train=False)
+            return x, self.bundle.discriminate(d, x, labels, train=False)
+
+    def _draw_score(self, g, d, generator, n: int):
+        """One candidate batch drawn from ``generator`` (labels, then z),
+        its labels and its final logits."""
+        labels = self._labels_for(generator, n)
+        z = self.bundle.sample_z(generator, n)
+        x, logits = self._score(g, d, z, labels, generator)
+        return x, labels, logits
+
+    def _accept(self, logits, labels, m, generator, seed=None):
+        """The batch's accept mask: DRS with u from ``generator`` or from
+        the Philox key ``seed``, or all accepted."""
+        if not self._reject_on:
+            return torch.ones(logits.shape, dtype=torch.bool,
+                              device=logits.device)
+        cfg = self.cfg
+        eff, eff_m = (fold_per_class(logits, m, labels) if self._per_class
+                      else (logits, m))
+        return drs_accept_mask(generator, eff, eff_m, cfg.gamma, cfg.eps_drs,
+                               cfg.gamma_percentile,
+                               use_pallas=cfg.use_pallas, seed=seed)
 
     def calibrate(self, g, d, generator: torch.Generator | None
                   ) -> torch.Tensor:
@@ -115,22 +148,62 @@ class ServingSampler:
               generator: torch.Generator | None):
         """One serving round: (samples, labels or None, accept, logits)
         with ``num_batches * batch_size`` candidates, all on the device."""
-        cfg = self.cfg
-        xs, labels, accs, logits = [], [], [], []
-        for _ in range(cfg.num_batches):
-            x, lab, lg = self._draw_score(g, d, generator, cfg.batch_size)
-            if self._reject_on:
-                eff, eff_m = (fold_per_class(lg, m, lab) if self._per_class
-                              else (lg, m))
-                acc = drs_accept_mask(generator, eff, eff_m, cfg.gamma,
-                                      cfg.eps_drs, cfg.gamma_percentile,
-                                      use_pallas=cfg.use_pallas)
-            else:
-                acc = torch.ones(lg.shape, dtype=torch.bool, device=lg.device)
-            xs.append(x)
-            labels.append(lab)
-            accs.append(acc)
-            logits.append(lg)
+        parts = []
+        for _ in range(self.cfg.num_batches):
+            x, labels, logits = self._draw_score(g, d, generator,
+                                                 self.cfg.batch_size)
+            parts.append((x, labels,
+                          self._accept(logits, labels, m, generator),
+                          logits))
+        return self._concat(parts)
+
+    def _round_from(self, g, d, m: torch.Tensor, z: torch.Tensor,
+                    labels: torch.Tensor | None, accept_seeds: torch.Tensor,
+                    noise=None):
+        """The round as a pure function of its draws: z (num_batches, B,
+        z_dim), labels (num_batches, B) or None, ``accept_seeds``
+        (num_batches,) int64, batch i's Philox key of the accept step (off
+        the kernel, u is the same bits), and where ``refine.noise`` > 0 one
+        noise source per batch in ``noise`` (None: the global generator)."""
+        parts = []
+        for i in range(z.shape[0]):
+            lab = None if labels is None else labels[i]
+            x, logits = self._score(g, d, z[i], lab,
+                                    None if noise is None else noise[i])
+            parts.append((x, lab, self._accept(
+                logits, lab, m, None, accept_seeds[i].reshape(1)), logits))
+        return self._concat(parts)
+
+    def seeded_draws(self, seed: torch.Tensor):
+        """``_round_from``'s draws under one int64 seed tensor, by Philox on
+        tensor ops: four keys from the seed (z, labels, accept, noise),
+        z by Box-Muller, labels as bits modulo the class count (or
+        ``class_id``), one accept key per batch, and per batch a
+        ``PhiloxNormals`` where the refinement draws noise."""
+        cfg, b = self.cfg, self.bundle
+        nb, n = cfg.num_batches, cfg.batch_size
+        seed = seed.to(b.device, torch.int64).reshape(1)
+        k_z, k_labels, k_accept, k_noise = philox_keys(seed, 4)
+        z = philox_normal(k_z, nb * n * b.z_dim).reshape(nb, n, b.z_dim)
+        labels = None
+        if self.class_id is not None:
+            labels = torch.full((nb, n), self.class_id, dtype=torch.int64,
+                                device=b.device)
+        elif b.conditional:
+            labels = philox_randint(k_labels, nb * n,
+                                    b.num_classes).reshape(nb, n)
+        noise = ([PhiloxNormals(k_noise, i) for i in range(nb)]
+                 if self._refine_on and cfg.noise > 0 else None)
+        return z, labels, philox_keys(k_accept, nb), noise
+
+    def round_seeded(self, g, d, m: torch.Tensor, seed: torch.Tensor):
+        """One serving round whose draws come from the int64 seed tensor
+        ``seed`` (``seeded_draws``): the exported artifact's program. No
+        global-RNG op is on its path."""
+        return self._round_from(g, d, m, *self.seeded_draws(seed))
+
+    def _concat(self, parts):
+        xs, labels, accs, logits = zip(*parts)
         labels = torch.cat(labels) if self.bundle.conditional else None
         return torch.cat(xs), labels, torch.cat(accs), torch.cat(logits)
 

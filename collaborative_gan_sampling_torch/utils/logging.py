@@ -1,9 +1,12 @@
 """Structured JSONL metrics writer.
 
 Counterpart of ``collaborative_gan_sampling_tpu/utils/logging.py``: one JSON
-line per event, with the step and the seconds since the writer opened. The
-JAX package's optional TensorBoard mirror needs TensorFlow and is not
-ported.
+line per event, with the step and the seconds since the writer opened, and
+an optional TensorBoard mirror (``tensorboard_dir``): every numeric key of
+an event but ``step`` as a scalar at that step, through
+``torch.utils.tensorboard.SummaryWriter``, imported only when a mirror is
+asked for. The JAX package writes the same tags, steps and values as TF2
+tensor events; this writes ``simple_value`` scalars.
 """
 
 from __future__ import annotations
@@ -28,16 +31,21 @@ class MetricsWriter:
     """Append-only JSONL writer: one event per line with step + wall time."""
 
     def __init__(self, path: str | None = None, echo: bool = True,
-                 append: bool = True):
+                 tensorboard_dir: str | None = None, append: bool = True):
         """``append=False`` truncates an existing log: a run that starts
         from scratch (step 0) passes it, so that a retrain leaves no stale
         first run in the file (readers assume monotonic steps)."""
         self._fh: IO[str] | None = None
         self._echo = echo
         self._t0 = time.time()
+        self._tb = None
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._fh = open(path, "a" if append else "w", buffering=1)
+        if tensorboard_dir:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(tensorboard_dir)
 
     def write(self, step: int, **metrics: Any) -> None:
         event = {"step": int(step), "t": round(time.time() - self._t0, 3)}
@@ -45,6 +53,10 @@ class MetricsWriter:
         line = json.dumps(event)
         if self._fh is not None:
             self._fh.write(line + "\n")
+        if self._tb is not None:
+            for k, v in event.items():
+                if k != "step" and isinstance(v, (int, float)):
+                    self._tb.add_scalar(k, v, int(step))
         if self._echo:
             print(line, file=sys.stderr)
 
@@ -52,3 +64,12 @@ class MetricsWriter:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
+    def __enter__(self) -> "MetricsWriter":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()

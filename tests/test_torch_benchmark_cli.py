@@ -144,7 +144,10 @@ def test_benchmark_lines_match_jax(tmp_path):
             if k not in ("t", "phase", "method"):
                 assert got[k] == pytest.approx(want[k], abs=1e-6), k
     assert list(tables[0]) == list(tables[1]) == list(methods)
-    assert t_pipeline._NOT_PORTED == ("export", "teaser")
+    # Every method of the JAX Experiment is ported: export and teaser too.
+    assert not hasattr(t_pipeline, "_NOT_PORTED")
+    for name in ("export", "teaser", "benchmark", "profile"):
+        assert callable(getattr(t_pipeline.Experiment, name))
 
 
 def test_inspect_matches_jax_on_a_jax_checkpoint(tmp_path, capsys):

@@ -23,6 +23,7 @@ from collaborative_gan_sampling_torch.config import (
     get_preset,
 )
 from collaborative_gan_sampling_torch.pipeline import Experiment
+from collaborative_gan_sampling_torch.sampling.export import load_sampler
 from collaborative_gan_sampling_torch.training.gan import sampling_g
 from collaborative_gan_sampling_torch.utils.checkpoint import state_dict
 from collaborative_gan_sampling_tpu import config as jconfig
@@ -128,7 +129,8 @@ def test_image_experiment_samples_and_refuses_fid(tmp_path):
     """Image sampling is scored by FID; intra-FID of an unconditional
     model's pool, which has no labels, is refused with a clear error
     (tests/test_torch_conditional_pipeline.py scores labelled pools), and
-    export, not ported yet, is refused."""
+    the collab serving round exports (the refinement by autograd, which no
+    kernel serves at this width) and reloads."""
     exp = _exp(_cfg(tmp_path, "mnist", (
         "model.compute_dtype=float32", "eval.fid_num_samples=32",
         "eval.fid_batch_size=16", "eval.feature_train_steps=2")))
@@ -142,8 +144,13 @@ def test_image_experiment_samples_and_refuses_fid(tmp_path):
     assert res.labels is None
     with pytest.raises(ValueError, match="intra_fid needs the pool's labels"):
         exp.intra_fid(res)
-    with pytest.raises(NotImplementedError, match="export"):
-        exp.export(state, "x")
+    meta = exp.export(state, str(tmp_path / "mnist.pt2"))
+    assert meta["method"] == "collab" and meta["data_shape"] == [16, 16, 1]
+    assert os.path.exists(os.path.join(exp.workdir, "shaped_d.msgpack"))
+    fn, _ = load_sampler(str(tmp_path / "mnist.pt2"))
+    x, labels, acc, logits = fn(0)
+    assert x.shape == (16, 16, 16, 1) and labels is None
+    assert bool(torch.isfinite(x).all() and torch.isfinite(logits).all())
 
 
 def test_cli_train_collab_generate(tmp_path, capsys):
