@@ -138,6 +138,30 @@ Phases, each of which raises (and exits non-zero) on failure:
              each kl cell none) and ``benchmark`` on phase 5t's trained
              toy2d state (%HQ and KL per method, kernels #5 and #1).
 
+8. compat and parallel - run after 5f, before 6x: phase 5t's trained
+             mnist (bf16) and toy2d states through ``state_to_tf1`` ->
+             ``tf1_to_checkpoint`` (a fresh workdir under
+             ``runs/smoke_compat``) -> ``load_or_train``, which must not
+             train; collab on each imported state equal to collab on the
+             original bit for bit (mnist 8 rounds of 256 and one burn-in
+             round: kernel #4 9 times, kernel #1 8; toy2d the preset's 40
+             rounds and 8 burn-in rounds: kernel #5 48 times, kernel #1
+             40); where ``tensorflow`` is installed, the map written as a
+             ``tf.train.Saver`` checkpoint and read back bit for bit in a
+             child process that sees no card (a line says whether it is);
+             a process group of one rank over NCCL in a child process: 10
+             mnist train iterations at full width and 4 collab rounds,
+             each with the group equal to the same without it bit for bit
+             (kernel #4 5 times, kernel #1 4); two processes over gloo on
+             the one card (``torch.distributed.run``): ``cli train --mesh``
+             of toy2d (3 iterations) writes one checkpoint and one log,
+             from rank 0, within 1e-4 (losses) and 1e-5 (parameters) of
+             the same command in one process, ``cli collab --mesh`` gives
+             the one-process accept rate and %HQ, KL within 1e-4; mnist
+             bf16 collab (2 rounds) on the imported state with the group
+             of 2: round 0's samples and mask equal to one process bit for
+             bit, kernel #4 once a round (and burn-in round) on each rank;
+
 Between phases 5 and 6, one DRS step through ``sampling/rejection.py`` is
 profiled: the key's draw and the kernel, at most two launches.
 
@@ -2197,6 +2221,709 @@ def files_tuning_phase(torch, dev, trained):
     return total, out
 
 
+# Phase 8: compat and parallel, after 5f and before 6x. The TF1 round trip
+# of phase 5t's trained states, and data parallelism at world size 1 over
+# NCCL (a child process) and 2 over gloo on the one card (torchrun), in
+# workdirs under runs/smoke_compat (gitignored; removed at the end).
+P8_DIR = os.path.join(TRAIN_DIR, "smoke_compat")
+P8_MNIST = ["refine.num_batches=8", "refine.burn_in=256"]
+P8_WS1 = ["train.niters=10", "train.steps_per_call=10",
+          "refine.num_batches=4", "refine.burn_in=256"]
+# JAX tests/test_parallel.py's chunk of 3 iterations: the bounds below are
+# its bounds for that many steps (rounding differences grow with Adam's
+# steps).
+P8_TOY_TRAIN = ["train.niters=3", "train.steps_per_call=3",
+                "train.log_every=3"]
+P8_WS2_MNIST = ["refine.num_batches=2", "refine.burn_in=256"]
+# The same pair of runs in f32 (kernel #3), with the shaping step's
+# separation test on (any positive separation passes it).
+P8_WS2_F32 = ["model.compute_dtype=float32", "refine.shaping_target=1e-6"]
+P8_LOSS_ATOL = 1e-4  # JAX tests/test_parallel.py:64-67, losses
+P8_PARAM_ATOL = 1e-5  # and parameters
+# One f32 shaping step's summed gradients against one process's, over the
+# largest gradient. Rounding alone reads up to ~9e-5 at full width (the
+# card, and the CPU after 100 training iterations), where BatchNorm on each
+# rank's own moments reads ~1e-1 and a missing 1 / world size scale 1.0
+# (2 gloo ranks on the CPU).
+P8_GRAD_RTOL = 1e-3
+
+
+def p8_counters():
+    from collaborative_gan_sampling_torch.ops.refine_mlp import (
+        fused_refine_mlp,
+    )
+
+    return {"refine_mlp": fused_refine_mlp, **conv_counters()}
+
+
+def p8_rounds(rcfg) -> tuple[int, int]:
+    """(refine kernel launches, accept kernel launches) of one collab run:
+    the burn-in rounds refine too."""
+    return (rcfg.num_batches + max(1, rcfg.burn_in // rcfg.batch_size),
+            rcfg.num_batches)
+
+
+def saver_child(npz: str, prefix: str) -> dict:
+    """The Saver step of phase 8, in a child process that sees no card
+    (TensorFlow would reserve the card's memory): write the npz's map as a
+    ``tf.train.Saver`` checkpoint, read it back, compare bit for bit."""
+    import importlib.metadata
+
+    import numpy as np
+
+    from collaborative_gan_sampling_torch.compat.tf1_export import (
+        write_tf1_checkpoint,
+    )
+    from collaborative_gan_sampling_torch.compat.tf1_import import (
+        read_tf1_checkpoint,
+    )
+
+    with np.load(npz) as f:
+        tf_vars = {k.replace("|", "/"): f[k] for k in f.files}
+    write_tf1_checkpoint(tf_vars, prefix)
+    back = read_tf1_checkpoint(os.path.dirname(prefix))
+    same = sorted(back) == sorted(tf_vars) and all(
+        np.array_equal(back[k], v) for k, v in tf_vars.items())
+    return {"variables": len(back), "equal": bool(same),
+            "tensorflow": importlib.metadata.version("tensorflow")}
+
+
+def tf1_roundtrip(torch, dev, trained, counters):
+    """8a: state_to_tf1 of phase 5t's trained mnist and toy2d states ->
+    tf1_to_checkpoint into a fresh workdir -> load_or_train (which must not
+    train) -> collab on the imported state equal to collab on the original
+    bit for bit, with the launch counters; the Saver round trip where
+    TensorFlow is installed."""
+    import importlib.util
+
+    import numpy as np
+
+    from collaborative_gan_sampling_torch.compat.tf1_export import (
+        state_to_tf1,
+    )
+    from collaborative_gan_sampling_torch.compat.tf1_import import (
+        tf1_to_checkpoint,
+    )
+    from collaborative_gan_sampling_torch.config import apply_overrides
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+
+    total = dict.fromkeys(counters, 0)
+    have_tf = importlib.util.find_spec("tensorflow") is not None
+    print(f"   tensorflow: {'installed' if have_tf else 'not installed'} "
+          f"on this machine{'' if have_tf else '; the Saver step is skipped'}")
+    for name, key, cuts, kernel in (
+            ("mnist", "mnist_trained", P8_MNIST, "conv_refine28_bf16"),
+            ("toy2d", "toy2d_trained", [], "refine_mlp")):
+        exp0, state0 = trained[key]
+        workdir = os.path.join(P8_DIR, f"tf1_{name}")
+        cfg = apply_overrides(exp0.cfg, cuts).replace(workdir=workdir)
+        t0 = time.perf_counter()
+        tf_vars = state_to_tf1(state0, cfg.model)
+        path = tf1_to_checkpoint(tf_vars, cfg, device=dev)
+        exp = Experiment(cfg, echo_metrics=False, device=dev)
+        state = exp.load_or_train()
+        import_s = time.perf_counter() - t0
+        retrained = os.path.exists(os.path.join(workdir, "train.jsonl"))
+        print(f"   {name}: {len(tf_vars)} TF1 variables -> "
+              f"{os.path.relpath(path, REPO)} in {import_s:.2f} s; "
+              f"load_or_train at step {state.step}, trained: {retrained}")
+        if retrained or state.step != cfg.train.niters:
+            raise AssertionError(f"{name}: the imported checkpoint was "
+                                 "trained on")
+        res0, _, _ = counted(torch, lambda: exp.sample(state0, "collab"),
+                             counters)
+        res1, seconds, launches = counted(
+            torch, lambda: exp.sample(state, "collab"), counters)
+        same = all(torch.equal(a, b) for a, b in (
+            (res0.samples, res1.samples), (res0.accepted, res1.accepted),
+            (res0.logits, res1.logits)))
+        rcfg = cfg.refine
+        want = p8_rounds(rcfg)
+        print(f"   {name} collab, {rcfg.num_batches} rounds of "
+              f"{rcfg.batch_size}: imported equal to the original bit for "
+              f"bit: {same}; accept rate {res1.accept_rate:.4f}, "
+              f"{seconds * 1e3:.1f} ms; launches {launches}")
+        if not same:
+            raise AssertionError(f"{name}: collab on the imported state "
+                                 "differs from the original")
+        if (launches[kernel], launches["drs_accept"]) != want:
+            raise AssertionError(f"{name}: launches {launches}, want "
+                                 f"{kernel} {want[0]}, drs_accept {want[1]}")
+        total = {k: total[k] + launches[k] for k in total}
+        if have_tf:
+            npz = os.path.join(workdir, "tf1_map.npz")
+            np.savez(npz, **{k.replace("/", "|"): v
+                             for k, v in tf_vars.items()})
+            child = subprocess.run(
+                [sys.executable, "-c", "import json, sys; sys.path.insert("
+                 f"0, {REPO!r}); import chip_smoke as cs; print(json.dumps("
+                 "cs.saver_child(*sys.argv[1:])))", npz,
+                 os.path.join(workdir, "tf1", "model-1")],
+                capture_output=True, text=True, cwd=REPO, timeout=300,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+            if child.returncode != 0:
+                raise AssertionError(f"the Saver child failed:\n"
+                                     f"{child.stderr[-4000:]}")
+            saver = json.loads(child.stdout.strip().splitlines()[-1])
+            print(f"   {name} Saver checkpoint (tensorflow "
+                  f"{saver['tensorflow']}): {saver['variables']} variables "
+                  f"read back equal: {saver['equal']}")
+            if not saver["equal"]:
+                raise AssertionError(f"{name}: the Saver round trip differs")
+    return total
+
+
+def ws1_child() -> dict:
+    """8b, in a child process: a process group of one rank over NCCL, passed
+    explicitly; 10 train iterations of the mnist preset at full width and 4
+    collab rounds, each with the group and without, bit for bit."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+    from collaborative_gan_sampling_torch.training.gan import (
+        create_train_state,
+        make_train_chunk,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    group = dist.group.WORLD
+    counters = p8_counters()
+    cfg = apply_overrides(get_preset("mnist"), P8_WS1).replace(
+        workdir=os.path.join(P8_DIR, "ws1"))
+    exp = Experiment(cfg, echo_metrics=False, device=dev)
+    states, metrics = [], []
+    for g in (None, group):
+        state = create_train_state(exp.bundle, cfg.train, cfg.seed)
+        state, m = make_train_chunk(exp.bundle, cfg.train, exp.data_fn,
+                                    cfg.seed, group=g)(state)
+        states.append(state)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"train_differs_in": state_differences(torch, *states),
+           "metrics": metrics}
+    runs = []
+    for g in (None, group):
+        res, seconds, launches = counted(torch, lambda: sample(
+            exp.bundle, states[0].g, states[0].d, cfg.refine,
+            torch.Generator(device=dev).manual_seed(3), method="collab",
+            data_fn=exp.data_fn, group=g), counters)
+        runs.append((res, seconds, launches))
+    (r0, s0, _), (r1, s1, launches) = runs
+    out["collab_equal"] = all(torch.equal(a, b) for a, b in (
+        (r0.samples, r1.samples), (r0.accepted, r1.accepted),
+        (r0.logits, r1.logits)))
+    out["launches"] = launches
+    out["want"] = p8_rounds(cfg.refine)
+    out["seconds"] = [s0, s1]
+    out["shape"] = list(r1.samples.shape)
+    dist.destroy_process_group()
+    return out
+
+
+def bn_fed(name: str) -> bool:
+    """A bias of a layer whose output goes into a BatchNorm (D's conv{i},
+    i >= 1; G's project and deconv{i}): its gradient is exactly zero, so
+    it holds only rounding noise, which Adam scales up to its step size."""
+    layer, _, leaf = name.rpartition(".")
+    return leaf == "bias" and (
+        layer == "project"
+        or (layer.startswith("deconv") and layer != "deconv_out")
+        or (layer.startswith("conv") and layer != "conv0"))
+
+
+def module_digest(module) -> str:
+    """sha256 over the digests of a module's parameters and buffers."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(module.parameters()) + list(module.buffers()):
+        h.update(digest(t).encode())
+    return h.hexdigest()
+
+
+def shaped_d_differences(torch, bundle, d1, d2, x) -> dict:
+    """Two shaped Ds (one process, a group) on the batch ``x``: the largest
+    differences of their parameters apart from the BN-fed biases, of those
+    biases, of the BN statistics, of the train-mode outputs computed in
+    f32 (BatchNorm makes them independent of the BN-fed biases), of the
+    eval-mode logits in the Ds' own dtype (what refinement and the accept
+    test read), and of those logits once d2 takes d1's BN-fed biases."""
+    import copy
+
+    out = {"params": 0.0, "bn_fed": 0.0}
+    p1 = {n: p.detach() for n, p in d1.named_parameters()}
+    for name, q in d2.named_parameters():
+        key = "bn_fed" if bn_fed(name) else "params"
+        out[key] = max(out[key], float((p1[name] - q.detach()).abs().max()))
+    b1 = dict(d1.named_buffers())
+    out["stats"] = max([0.0] + [float((b1[n].float() - b.float()).abs().max())
+                                for n, b in d2.named_buffers()])
+    swapped, f1, f2 = (copy.deepcopy(d) for d in (d2, d1, d2))
+    with torch.no_grad():
+        for name, p in swapped.named_parameters():
+            if bn_fed(name):
+                p.copy_(p1[name])
+        f1.dtype = f2.dtype = torch.float32
+        out["train_f32"] = float((bundle.discriminate(f1, x, train=True)
+                                  - bundle.discriminate(f2, x, train=True))
+                                 .abs().max())
+        e1, e2, e3 = (bundle.discriminate(d, x) for d in (d1, d2, swapped))
+    out["eval_logits"] = float((e1 - e2).abs().max())
+    out["eval_swapped"] = float((e1 - e3).abs().max())
+    return out
+
+
+def shaping_gradient_difference(torch, bundle, d, lr, group, x_real,
+                                x_fake) -> float:
+    """One shaping step's gradients, with ``group`` (each rank's slices,
+    summed over the ranks) and without it, on the same pair from the same
+    D: their largest difference over the largest gradient."""
+    from collaborative_gan_sampling_torch.parallel.mesh import shard_batch
+    from collaborative_gan_sampling_torch.training.shaping import ShapingStep
+
+    grads = []
+    for g in (None, group):
+        step = ShapingStep(bundle, lr, group=g)
+        state, _ = step(step.init(d), shard_batch(g, x_real),
+                        shard_batch(g, x_fake))
+        grads.append([p.grad for p in state.d.parameters()])
+    scale = max(float(t.abs().max()) for t in grads[0])
+    return max(float((a - c).abs().max()) for a, c in zip(*grads)) / scale
+
+
+def toy2d_ranks(torch, workdir: str) -> dict:
+    """8c, a rank of ``chip_smoke.py --mesh-worker toy2d``: ``cli collab
+    --mesh`` of the toy2d preset on the checkpoint ``train --mesh`` wrote,
+    every counter set to 0 just before the CLI call and read just after;
+    (the rank's launches, what the CLI printed: rank 0's result)."""
+    import io
+
+    from collaborative_gan_sampling_torch import cli
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+
+    cfg = apply_overrides(get_preset("toy2d"), P8_TOY_TRAIN)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, seconds, launches = counted(torch, lambda: cli.main(
+            ["collab", "--mesh", "--config", "toy2d", "--workdir", workdir,
+             *P8_TOY_TRAIN]), p8_counters())
+    printed = [line for line in buf.getvalue().splitlines()
+               if line.startswith("{")]
+    return {"rc": rc, "launches": launches, "seconds": seconds,
+            "want": p8_rounds(cfg.refine),
+            "result": json.loads(printed[-1]) if printed else None}
+
+
+def mnist_ranks(torch, workdir: str) -> dict:
+    """8c, a rank of ``chip_smoke.py --mesh-worker mnist``: the imported
+    mnist state of 8a (bf16) restored through ``Experiment(use_mesh=True)``,
+    collab with the group of 2 and without it: round 0 bit for bit, and
+    where the runs part after the shaping step, the shaped Ds' differences.
+    Then the same pair of runs in f32 (kernel #3) with the separation test
+    on, and where its round 0 parts: G and kernel #3 on half the batch."""
+    from collaborative_gan_sampling_torch.config import (
+        apply_overrides,
+        get_preset,
+    )
+    from collaborative_gan_sampling_torch.models import make_bundle
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        fused_refine_conv28,
+        fused_refine_conv28_bf16,
+    )
+    from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
+        fold_dcgan_d,
+    )
+    from collaborative_gan_sampling_torch.pipeline import Experiment
+    from collaborative_gan_sampling_torch.sampling.collab import sample
+    from collaborative_gan_sampling_torch.training.gan import (
+        create_train_state,
+        sampling_g,
+    )
+    from collaborative_gan_sampling_torch.utils.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+    from collaborative_gan_sampling_torch.utils.prng import step_generator
+
+    cfg = apply_overrides(get_preset("mnist"), P8_WS2_MNIST).replace(
+        workdir=workdir)
+    counters = p8_counters()
+    mexp = Experiment(cfg, use_mesh=True, echo_metrics=False)
+    state = mexp.load_state()
+    one = Experiment(cfg, echo_metrics=False).sample(state, "collab")
+    res, seconds, launches = counted(
+        torch, lambda: mexp.sample(state, "collab"), counters)
+    b = cfg.refine.batch_size
+    # Where round 0 could part from one process: G and the refine kernel on
+    # a rank's half of the batch against the same rows of the whole batch.
+    z = mexp.bundle.sample_z(torch.Generator(device=mexp.device)
+                             .manual_seed(5), b)
+    with torch.no_grad():
+        x0 = mexp.bundle.generate(sampling_g(state), z)
+        g_half = torch.equal(mexp.bundle.generate(sampling_g(state),
+                                                  z[:b // 2]), x0[:b // 2])
+    params, rate = fold_dcgan_d(state.d), cfg.refine.rate
+    k_whole = fused_refine_conv28_bf16(params, x0, cfg.refine.steps, rate)
+    k_half = fused_refine_conv28_bf16(params, x0[:b // 2], cfg.refine.steps,
+                                      rate)
+    out = {"g_half_equal": bool(g_half),
+           "kernel_half_equal": bool(torch.equal(k_whole[0][:b // 2],
+                                                 k_half[0])),
+           "round0_equal": bool(torch.equal(one.samples[:b], res.samples[:b])
+                                and torch.equal(one.accepted[:b],
+                                                res.accepted[:b])),
+           "max_dx": float((one.samples.float()
+                            - res.samples.float()).abs().max()),
+           "masks_equal": bool(torch.equal(one.accepted, res.accepted)),
+           "launches": launches, "seconds": seconds,
+           "want": p8_rounds(cfg.refine), "shape": list(res.samples.shape),
+           "shaping_lr": cfg.refine.shaping_lr,
+           "steps": res.aux["shaping_steps_done"],
+           # Round 0's refined batch: equal in both runs.
+           "shaped": shaped_d_differences(
+               torch, mexp.bundle, one.aux["shaped_d"], res.aux["shaped_d"],
+               one.samples[:b].float())}
+    x_real = mexp.data_fn(torch.Generator(device=mexp.device)
+                          .manual_seed(6), b)[0]
+    out["shaped"]["grad"] = shaping_gradient_difference(
+        torch, mexp.bundle, state.d, cfg.refine.shaping_lr, mexp.group,
+        x_real, one.samples[:b])
+    fcfg = apply_overrides(cfg, P8_WS2_F32)
+    fbundle = make_bundle(fcfg.model, mexp.device)
+    fstate = restore_checkpoint(
+        latest_checkpoint(mexp.ckpt_dir),
+        target=create_train_state(fbundle, fcfg.train, fcfg.seed))
+    runs = [counted(torch, lambda g=g: sample(
+        fbundle, sampling_g(fstate), fstate.d, fcfg.refine,
+        step_generator(fcfg.seed, 0, "eval", mexp.device), method="collab",
+        data_fn=mexp.data_fn, group=g), counters)
+        for g in (None, mexp.group)]
+    (f1, _, _), (f2, _, f_launches) = runs
+    # Where f32 round 0 parts: G on half the batch against the whole
+    # batch's rows, and the same rows refined by kernel #3.
+    fparams = fold_dcgan_d(fstate.d)
+    with torch.no_grad():
+        x0 = fbundle.generate(sampling_g(fstate), z)
+        x0_half = fbundle.generate(sampling_g(fstate), z[:b // 2])
+    k_whole = fused_refine_conv28(fparams, x0, cfg.refine.steps, rate)[0]
+    k_rows = fused_refine_conv28(fparams, x0[:b // 2], cfg.refine.steps,
+                                 rate)[0]
+    k_half = fused_refine_conv28(fparams, x0_half, cfg.refine.steps,
+                                 rate)[0]
+    out["f32"] = dict(
+        shaped_d_differences(torch, fbundle, f1.aux["shaped_d"],
+                             f2.aux["shaped_d"], f1.samples[:b]),
+        samples=float((f1.samples - f2.samples).abs().max()),
+        masks_equal=bool(torch.equal(f1.accepted, f2.accepted)),
+        # Round 0 runs before the shaping step.
+        round0=float((f1.samples[:b] - f2.samples[:b]).abs().max()),
+        round0_masks_equal=bool(torch.equal(f1.accepted[:b],
+                                            f2.accepted[:b])),
+        loss=float((f1.aux["shape_losses"]
+                    - f2.aux["shape_losses"]).abs().max()),
+        steps=[f1.aux["shaping_steps_done"], f2.aux["shaping_steps_done"]],
+        launches=f_launches, want=p8_rounds(fcfg.refine),
+        g_half=float((x0_half - x0[:b // 2]).abs().max()),
+        kernel_half_equal=bool(torch.equal(k_rows, k_whole[:b // 2])),
+        refined_g_half=float((k_half - k_whole[:b // 2]).abs().max()),
+        grad=shaping_gradient_difference(
+            torch, fbundle, fstate.d, fcfg.refine.shaping_lr, mexp.group,
+            x_real, f1.samples[:b]))
+    # What the group holds must be the same on every rank; each rank's
+    # one-process runs are its own.
+    out["group"] = {"bf16_samples": digest(res.samples),
+                    "bf16_d": module_digest(res.aux["shaped_d"]),
+                    "f32_samples": digest(f2.samples),
+                    "f32_d": module_digest(f2.aux["shaped_d"])}
+    out["one"] = {"bf16_samples": digest(one.samples),
+                  "bf16_d": module_digest(one.aux["shaped_d"]),
+                  "f32_samples": digest(f1.samples),
+                  "f32_d": module_digest(f1.aux["shaped_d"])}
+    return out
+
+
+MESH_WORKERS = {"toy2d": toy2d_ranks, "mnist": mnist_ranks}
+
+
+def mesh_worker(kind: str, out_path: str, workdir: str) -> None:
+    """Each rank of ``torchrun --nproc_per_node 2 chip_smoke.py
+    --mesh-worker <kind> <out> <workdir>`` on the one card: the group comes
+    up from torchrun's environment (gloo: two processes share the card),
+    ``MESH_WORKERS[kind]`` runs, and rank 0 writes every rank's dict."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from collaborative_gan_sampling_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
+
+    maybe_initialize_distributed("cuda")
+    out = MESH_WORKERS[kind](torch, workdir)
+    out.update(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as fh:
+            json.dump(every, fh)
+    shutdown_distributed()
+
+
+def run_ranks(kind: str, workdir: str) -> tuple[list, float]:
+    """``mesh_worker(kind, ...)`` under torchrun: (every rank's dict,
+    seconds)."""
+    out_path = os.path.join(P8_DIR, f"ranks_{kind}.json")
+    _, seconds = torchrun([os.path.join(REPO, "chip_smoke.py"),
+                           "--mesh-worker", kind, out_path, workdir])
+    with open(out_path) as fh:
+        return json.load(fh), seconds
+
+
+def check_rank_launches(r: dict, launches: dict, want, names) -> None:
+    got = tuple(launches[k] for k in names)
+    if got != tuple(want):
+        raise AssertionError(f"rank {r['rank']}: launches of {names} "
+                             f"{got}, want {tuple(want)}")
+
+
+def torchrun(args, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2``
+    with ``args`` from the repo root: (its stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", *args], capture_output=True, text=True,
+        cwd=REPO, timeout=timeout, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {args[:4]} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def last_json(text: str) -> dict:
+    return json.loads([line for line in text.strip().splitlines()
+                       if line.startswith("{")][-1])
+
+
+def ws2_toy2d(torch, counters):
+    """8c through the CLI: ``train --mesh`` and ``collab --mesh`` of the
+    toy2d preset at full width over gloo with 2 processes on the one card,
+    against the same commands in one process (this one). ``collab
+    --mesh`` runs in ``toy2d_ranks``, which counts each rank's launches:
+    their sum is what the phase returns."""
+    from collaborative_gan_sampling_torch.utils.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+
+    wd2, wd1 = (os.path.join(P8_DIR, f"toy2d_ws{n}") for n in (2, 1))
+    common = ["--config", "toy2d"]
+    stdout, s2 = torchrun(["-m", "collaborative_gan_sampling_torch.cli",
+                           "train", "--mesh",
+                           *common, "--workdir", wd2, *P8_TOY_TRAIN])
+    results = [json.loads(line) for line in stdout.splitlines()
+               if line.startswith("{")]
+    got1, s1, _ = run_cli(torch, ["train", *common, "--workdir", wd1,
+                                  *P8_TOY_TRAIN], counters)
+    with open(os.path.join(wd2, "train.jsonl")) as fh:
+        rows2 = [json.loads(line) for line in fh]
+    with open(os.path.join(wd1, "train.jsonl")) as fh:
+        rows1 = [json.loads(line) for line in fh]
+    ckpts = sorted(os.listdir(os.path.join(wd2, "ckpts")))
+    raw2 = restore_checkpoint(latest_checkpoint(os.path.join(wd2, "ckpts")))
+    raw1 = restore_checkpoint(latest_checkpoint(os.path.join(wd1, "ckpts")))
+    dp = max(float(abs(a - b).max()) for side in ("g_vars", "d_vars")
+             for a, b in zip(leaves(raw1[side]["params"]),
+                             leaves(raw2[side]["params"])))
+    dl = max(abs(r1[k] - r2[k]) for r1, r2 in zip(rows1, rows2)
+             for k in LOSS_KEYS if k in r1)
+    print(f"   train --mesh (2 processes, gloo): {s2:.1f} s; results "
+          f"printed {len(results)} (rank 0), checkpoints {ckpts}, "
+          f"{len(rows2)} log rows; one process {s1:.1f} s: max |dloss| "
+          f"{dl:.3e}, max |dparam| {dp:.3e}")
+    if (len(results) != 1 or results[0]["trained_steps"] != 3
+            or len(rows2) != len(rows1) or ckpts != [
+                "ckpt_00000003.msgpack", "config.json"]):
+        raise AssertionError("train --mesh did not write one checkpoint and "
+                             "one log from rank 0")
+    if not (dl <= P8_LOSS_ATOL and dp <= P8_PARAM_ATOL):
+        raise AssertionError(f"train --mesh: losses {dl}, params {dp} off "
+                             "the one-process run")
+    ranks, s2 = run_ranks("toy2d", wd2)
+    m2 = ranks[0]["result"]
+    m1, s1, _ = run_cli(torch, ["collab", *common, "--workdir", wd2,
+                                *P8_TOY_TRAIN], counters)
+    print(f"   collab --mesh: {s2:.1f} s, {m2}; one process ({s1:.1f} s): "
+          f"{m1}")
+    total = dict.fromkeys(counters, 0)
+    for r in ranks:
+        print(f"   rank {r['rank']} of {r['world']} ({r['backend']}): cli "
+              f"exited {r['rc']}, launches {r['launches']}")
+        if r["rc"] != 0 or r["backend"] != "gloo":
+            raise AssertionError(f"rank {r['rank']}: cli collab --mesh "
+                                 f"exited {r['rc']} over {r['backend']}")
+        check_rank_launches(r, r["launches"], r["want"],
+                            ("refine_mlp", "drs_accept"))
+        for k in total:
+            total[k] += r["launches"][k]
+    if m1["accept_rate"] != m2["accept_rate"] or not all(
+            abs(m1[k] - m2[k]) <= 1e-4 for k in ("pct_hq", "kl")):
+        raise AssertionError("collab --mesh differs from one process")
+    return total
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k])
+    else:
+        yield tree
+
+
+def compat_parallel_phase(torch, dev, trained):
+    """Phase 8. Returns the kernels' launches and the phase's seconds."""
+    counters = p8_counters()
+    shutil.rmtree(P8_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 8]"
+
+    phase("8: TF1 round trip of the trained mnist and toy2d states "
+          "(state_to_tf1 -> tf1_to_checkpoint -> load_or_train -> collab)"
+          + at())
+    total = tf1_roundtrip(torch, dev, trained, counters)
+
+    phase("8: world size 1 over NCCL in a child process (mnist, 10 train "
+          "iterations and 4 collab rounds, with the group and without)"
+          + at())
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, sys; sys.path.insert(0, "
+         f"{REPO!r}); import chip_smoke as cs; print(json.dumps("
+         "cs.ws1_child()))"], capture_output=True, text=True, cwd=REPO,
+        timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the NCCL child failed:\n{child.stderr[-4000:]}")
+    ws1 = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"   {time.perf_counter() - t0:.1f} s; train with the group "
+          f"differs in {ws1['train_differs_in'] or 'nothing'}; collab "
+          f"{tuple(ws1['shape'])} equal bit for bit: {ws1['collab_equal']}; "
+          f"launches {ws1['launches']}")
+    if ws1["train_differs_in"] or not ws1["collab_equal"]:
+        raise AssertionError("world size 1 over NCCL differs from no group")
+    want = tuple(ws1["want"])
+    if (ws1["launches"]["conv_refine28_bf16"],
+            ws1["launches"]["drs_accept"]) != want:
+        raise AssertionError(f"NCCL child launches {ws1['launches']}, "
+                             f"want {want}")
+    for k in total:
+        total[k] += ws1["launches"][k]
+
+    phase("8: world size 2 over gloo on the one card (torchrun): toy2d "
+          "train --mesh and collab --mesh through the CLI" + at())
+    for k, n in ws2_toy2d(torch, counters).items():
+        total[k] += n
+
+    phase("8: world size 2 over gloo: mnist collab "
+          f"({', '.join(P8_WS2_MNIST)}) on the imported state, bf16 and "
+          "f32" + at())
+    ranks, seconds = run_ranks("mnist", os.path.join(P8_DIR, "tf1_mnist"))
+    for r in ranks:
+        sh, f = r["shaped"], r["f32"]
+        adam = 4 * r["shaping_lr"] * r["steps"]  # Adam's movement, both runs
+        print(f"   rank {r['rank']} of {r['world']} ({r['backend']}): round "
+              f"0 equal to one process bit for bit: {r['round0_equal']}; "
+              f"all rounds: max |dx| {r['max_dx']:.3e}, masks equal "
+              f"{r['masks_equal']}; launches {r['launches']}; G on half "
+              f"the batch equal to the whole batch's rows: "
+              f"{r['g_half_equal']}, the refine kernel: "
+              f"{r['kernel_half_equal']}")
+        print(f"     bf16 shaped D after {r['steps']} step(s), group "
+              f"against one process: params {sh['params']:.3e}, BN-fed "
+              f"biases {sh['bn_fed']:.3e} (Adam's bound {adam:.1e}), BN "
+              f"statistics {sh['stats']:.3e}, train-mode outputs in f32 "
+              f"{sh['train_f32']:.3e}; eval logits {sh['eval_logits']:.3e}, "
+              f"{sh['eval_swapped']:.3e} with the one-process BN-fed "
+              f"biases; one step's summed gradients {sh['grad']:.3e} of "
+              "the largest")
+        print(f"     f32 (kernel #3, separation test on): G on half the "
+              f"batch against the whole batch's rows {f['g_half']:.3e}, "
+              f"kernel #3 on the same rows equal: {f['kernel_half_equal']}, "
+              f"on G's half-batch rows {f['refined_g_half']:.3e}; round 0 "
+              f"{f['round0']:.3e}, masks equal {f['round0_masks_equal']}; "
+              f"all rounds {f['samples']:.3e}, masks equal "
+              f"{f['masks_equal']}, "
+              f"shaping loss {f['loss']:.3e}, steps {f['steps']}; shaped "
+              f"D: params {f['params']:.3e}, BN-fed biases "
+              f"{f['bn_fed']:.3e}, BN statistics {f['stats']:.3e}, "
+              f"train-mode outputs {f['train_f32']:.3e}; eval logits "
+              f"{f['eval_logits']:.3e} ({f['eval_swapped']:.3e} with the "
+              f"one-process BN-fed biases); one step's summed gradients "
+              f"{f['grad']:.3e} of the largest; launches {f['launches']}")
+        if r["backend"] != "gloo" or not r["round0_equal"]:
+            raise AssertionError(f"rank {r['rank']}: round 0 differs from "
+                                 f"one process ({r['backend']})")
+        # A gradient that is zero but for rounding (the BN-fed biases; at
+        # full width, now and then another parameter) is scaled by Adam's
+        # first step to +-lr, in either dtype: the shaped Ds' parameters are
+        # held to Adam's bound, the data-parallel arithmetic (the summed
+        # gradients through the group's BN moments) by the gradients in
+        # f32, the BN statistics and the loss by the CPU tests' bounds
+        # (JAX test_parallel.py's). Round 0 parts in f32 where G does
+        # (cuDNN's algorithm for half the batch); its masks are held.
+        if (max(sh["bn_fed"], sh["params"]) > adam
+                or sh["stats"] > P8_PARAM_ATOL):
+            raise AssertionError(f"rank {r['rank']}: bf16 shaped D beyond "
+                                 "Adam's movement")
+        if not (f["round0_masks_equal"] and f["loss"] <= P8_LOSS_ATOL
+                and f["grad"] <= P8_GRAD_RTOL
+                and max(f["params"], f["bn_fed"]) <= adam
+                and f["stats"] <= P8_PARAM_ATOL
+                and f["steps"][0] == f["steps"][1] == r["steps"]):
+            raise AssertionError(f"rank {r['rank']}: f32 collab with the "
+                                 f"group off one process: {f}")
+        check_rank_launches(r, r["launches"], r["want"],
+                            ("conv_refine28_bf16", "drs_accept"))
+        check_rank_launches(r, f["launches"], f["want"],
+                            ("conv_refine28", "drs_accept"))
+        for k in total:
+            total[k] += r["launches"][k] + f["launches"][k]
+    differ = {side: sorted(k for k in ranks[0][side]
+                           if len({r[side][k] for r in ranks}) > 1)
+              for side in ("group", "one")}
+    print(f"   the ranks' gathered samples and shaped Ds (bf16, f32) differ "
+          f"in: {differ['group'] or 'nothing'}; their one-process runs in: "
+          f"{differ['one'] or 'nothing'}; torchrun: {seconds:.1f} s")
+    if differ["group"]:
+        raise AssertionError(f"the ranks hold different {differ['group']}")
+    shutil.rmtree(P8_DIR)
+    seconds = time.perf_counter() - t_phase
+    print(f"   phase 8: {seconds:.1f} s; launches {total}")
+    return total, seconds
+
+
 def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
@@ -2677,6 +3404,11 @@ def main() -> None:
     files_launches, files = files_tuning_phase(torch, dev, trained)
     for k, n in files_launches.items():
         launches[k] += n
+    # Phase 8 after 5f, before 6x; each of its runs counted from 0 (the
+    # child processes' counts are theirs).
+    p8_launches, p8_seconds = compat_parallel_phase(torch, dev, trained)
+    for k, n in p8_launches.items():
+        launches[k] += n
     # Phase 6x last: after the export in this process, torch.profiler's
     # later sessions here lost every device record of a kernel (three
     # sessions of 10 launches each on one H100).
@@ -2757,6 +3489,8 @@ def main() -> None:
           + ", ".join(f"{m} {r['launches']['drs_accept']}"
                       for m, r in bench.items())
           + f"; launches in the phase {files_launches}")
+    print(f"   compat and parallel (phase 8, {p8_seconds:.1f} s): "
+          f"launches {p8_launches}")
     for name in ("mnist", "toy2d"):
         x = exported[name]
         print(f"   export ({name} collab serving round, "
@@ -2773,4 +3507,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:  # phase 8's torchrun ranks
+        sys.path.insert(0, REPO)
+        mesh_worker(*sys.argv[2:5])
+    else:
+        main()

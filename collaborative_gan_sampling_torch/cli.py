@@ -1,7 +1,6 @@
 """CLI: ``python -m collaborative_gan_sampling_torch.cli <cmd> ...``.
 
-Counterpart of ``collaborative_gan_sampling_tpu/cli.py`` for the commands
-the port has:
+Counterpart of ``collaborative_gan_sampling_tpu/cli.py``:
 
     cli train     --config toy2d [a.b=c ...]
     cli refine    --config toy2d refine.method=refinement
@@ -17,19 +16,24 @@ the port has:
     cli benchmark --config toy2d          # all five methods, one table
     cli inspect   --config cifar10        # the latest checkpoint, no device
     cli profile   --config mnist          # torch.profiler trace
+    cli import-tf1 --config celeba tf1=/path/to/tf1/ckpts [step=N]
     cli presets
 
-Counterpart of the JAX CLI but for ``import-tf1``. ``export`` writes the
-serving round as one ``torch.export`` file (``out=``, ``class=``;
-``sampling/export.py``) for the device it runs on: ``platforms=`` takes
-that one device type (``cuda`` or ``cpu``, as ``--device`` gives it), where
-the JAX CLI lowers for several platforms at once. Any config field is
-overridable as dotted key=value (``config.apply_overrides``);
-``data.path=`` points ``mnist`` / ``fmnist`` at idx files, ``cifar10`` at
-the python pickles and ``celeba`` / ``imagenet64`` at a folder of images. Commands after ``train`` but
-``inspect`` restore the latest checkpoint of the workdir (one that either
-package wrote) and resume training first if it is behind
-``train.niters``. ``refine``, ``collab`` and ``eval`` print
+``export`` writes the serving round as one ``torch.export`` file
+(``out=``, ``class=``; ``sampling/export.py``) for the device it runs on:
+``platforms=`` takes that one device type (``cuda`` or ``cpu``, as
+``--device`` gives it), where the JAX CLI lowers for several platforms at
+once. ``import-tf1`` converts the reference's TF1 ``tf.train.Saver``
+checkpoint (a directory or a prefix) into a checkpoint of the workdir at
+``step=`` (default ``train.niters``, so that the commands after it sample
+the imported (G, D) without training; ``compat/tf1_import.py``). Any
+config field is overridable as dotted key=value
+(``config.apply_overrides``); ``data.path=`` points ``mnist`` / ``fmnist``
+at idx files, ``cifar10`` at the python pickles and ``celeba`` /
+``imagenet64`` at a folder of images. Commands after ``train`` but
+``inspect`` and ``import-tf1`` restore the latest checkpoint of the
+workdir (one that either package wrote) and resume training first if it
+is behind ``train.niters``. ``refine``, ``collab`` and ``eval`` print
 ``Experiment.evaluate`` of their samples (FID, with KID and
 precision/recall when configured, on image presets; %HQ and KL on 2D);
 ``sweep`` prints the refinement-depth sweep and its best K; ``tune`` the
@@ -41,6 +45,23 @@ and ``collab`` tunes (K, rate) under the method being run first.
 ``inspect`` reads the checkpoint alone: no dataset, no model, no device,
 so it runs without a card. Everything else runs on the card unless
 ``--device cpu`` is given.
+
+Each command takes only its own keys (``n=``, ``out=``, ``class=``,
+``platforms=``, ``tf1=``, ``step=``, ``sweep_steps=``, ``tune_*=``); on
+another command such a key raises the config's unknown-field error. The
+JAX CLI consumes ``sweep_steps=`` and ``tune_*=`` on every command; the
+port keeps the stricter rule.
+
+``--mesh``: data-parallel over the processes of a launcher, one per card
+(``python -m torch.distributed.run --nproc_per_node N -m
+collaborative_gan_sampling_torch.cli train --mesh ...``;
+``parallel/``). The process group comes up from the launcher's
+environment (``parallel/multihost.py``), over ``nccl`` on the card and
+``gloo`` on the CPU or where a host runs more processes than it has
+cards (two processes sharing one card). Rank 0 writes the files and prints
+the result. ``--debug-nans`` stops at the first op that makes a NaN
+(``utils/debug.py``; every op synchronises, so for development runs
+only).
 """
 
 from __future__ import annotations
@@ -50,11 +71,18 @@ import dataclasses
 import json
 import sys
 
+import torch
+
 from collaborative_gan_sampling_torch.config import (
     apply_overrides,
     get_preset,
     list_presets,
 )
+from collaborative_gan_sampling_torch.parallel.multihost import (
+    maybe_initialize_distributed,
+    shutdown_distributed,
+)
+from collaborative_gan_sampling_torch.utils.debug import debug_nans
 
 # The self-guarding sampling recipe of the JAX CLI's --safe: refinement
 # stops per sample at D's decision boundary, and shaping stops once D no
@@ -162,7 +190,7 @@ def main(argv: list[str] | None = None) -> int:
                                             "benchmark", "eval", "sweep",
                                             "tune", "teaser", "profile",
                                             "generate", "export", "inspect",
-                                            "presets"])
+                                            "import-tf1", "presets"])
     parser.add_argument("--config", default="toy2d",
                         help=f"preset: {list_presets()}")
     parser.add_argument("--workdir", default="")
@@ -170,6 +198,12 @@ def main(argv: list[str] | None = None) -> int:
                         help="sampling method override for refine/generate")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel over the launcher's processes, "
+                             "one per card")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="raise at the first op that makes a NaN "
+                             "(development runs: every op synchronises)")
     parser.add_argument("--safe", action="store_true",
                         help="apply the self-guarding sampling recipe "
                              "(refine.stop_score=0.5, "
@@ -184,8 +218,30 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(list_presets()))
         return 0
 
+    # A no-op in one process; see parallel/multihost.py.
+    started = (args.command not in ("inspect", "import-tf1")
+               and not torch.distributed.is_initialized()
+               and maybe_initialize_distributed(args.device))
+    try:
+        with debug_nans(args.debug_nans):
+            return _run(args, overrides)
+    finally:
+        if started:
+            shutdown_distributed()
+
+
+def _emit(obj, **kw) -> None:
+    """Print one JSON result, on rank 0 only when a process group is
+    up."""
+    if (not torch.distributed.is_initialized()
+            or torch.distributed.get_rank() == 0):
+        print(json.dumps(obj, **kw), flush=True)
+
+
+def _run(args, overrides: list[str]) -> int:
     gen_n, gen_out, gen_class = 10_000, "", None
     exp_out, exp_platforms = "", None
+    tf1_src, tf1_step = "", None
     sweep_steps, tune_rates = [1, 5, 10, 20, 50], None
     axes = {key: None for key, *_ in TUNE_AXES}
     casts = {key: cast for key, *_, cast in TUNE_AXES}
@@ -206,6 +262,10 @@ def main(argv: list[str] | None = None) -> int:
             exp_out = val
         elif args.command == "export" and key == "platforms":
             exp_platforms = val.split(",")
+        elif args.command == "import-tf1" and key == "tf1":
+            tf1_src = val
+        elif args.command == "import-tf1" and key == "step":
+            tf1_step = int(val)
         elif args.command in grid_cmds and key == "sweep_steps":
             sweep_steps = [int(k) for k in val.split(",")]
         elif args.command in grid_cmds[1:] and key == "tune_rates":
@@ -222,6 +282,20 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(_inspect(cfg), indent=2))
         return 0
 
+    if args.command == "import-tf1":
+        if not tf1_src:
+            print("import-tf1 requires tf1=<path to TF1 checkpoint dir or "
+                  "prefix>", file=sys.stderr)
+            return 2
+        from collaborative_gan_sampling_torch.compat.tf1_import import (
+            tf1_to_checkpoint,
+        )
+
+        path = tf1_to_checkpoint(tf1_src, cfg, step=tf1_step,
+                                 device=args.device)
+        print(json.dumps({"checkpoint": path, "workdir": cfg.workdir}))
+        return 0
+
     if args.command == "export":
         if not exp_out:
             print("export requires out=<artifact path>", file=sys.stderr)
@@ -230,11 +304,10 @@ def main(argv: list[str] | None = None) -> int:
 
     from collaborative_gan_sampling_torch.pipeline import Experiment
 
-    exp = Experiment(cfg, device=args.device)
+    exp = Experiment(cfg, use_mesh=args.mesh, device=args.device)
     if args.command == "train":
         state = exp.train()
-        print(json.dumps({"trained_steps": state.step,
-                          "workdir": cfg.workdir}))
+        _emit({"trained_steps": state.step, "workdir": cfg.workdir})
         return 0
 
     state = exp.load_or_train()
@@ -258,13 +331,13 @@ def main(argv: list[str] | None = None) -> int:
                                                  rate=br)
                 tuned = {"tuned_k": bk, "tuned_rate": br}
         res = exp.sample(state, method=method, refine_cfg=refine_cfg)
-        print(json.dumps({"method": method, **tuned, **exp.evaluate(res)}))
+        _emit({"method": method, **tuned, **exp.evaluate(res)})
         return 0
 
     if args.command == "sweep":
         best_k, table = exp.select_k(state, sweep_steps,
                                      method=args.method or "refinement")
-        print(json.dumps({"best_k": best_k, "sweep": table}))
+        _emit({"best_k": best_k, "sweep": table})
         return 0
 
     if args.command == "tune":
@@ -272,32 +345,32 @@ def main(argv: list[str] | None = None) -> int:
             state, sweep_steps, tune_rates,
             method=args.method or "refinement",
             **{arg: axes[key] for key, arg, *_ in TUNE_AXES})
-        print(json.dumps(_tune_result(best, table, axes)))
+        _emit(_tune_result(best, table, axes))
         return 0
 
     if args.command == "benchmark":
-        print(json.dumps(exp.benchmark(state), indent=2))
+        _emit(exp.benchmark(state), indent=2)
         return 0
 
     if args.command == "profile":
-        print(json.dumps({"trace_dir": exp.profile(state)}))
+        _emit({"trace_dir": exp.profile(state)})
         return 0
 
     if args.command == "teaser":
-        print(json.dumps(exp.teaser(state)))
+        _emit(exp.teaser(state))
         return 0
 
     if args.command == "export":
         meta = exp.export(state, exp_out, method=args.method or None,
                           class_id=gen_class)
-        print(json.dumps({"out": exp_out, **meta}))
+        _emit({"out": exp_out, **meta})
         return 0
 
     # generate: the serving path, streaming accepted samples.
     method = args.method or cfg.refine.method
     _, _, stats = exp.generate(state, gen_n, method=method,
                                out=gen_out or None, class_id=gen_class)
-    print(json.dumps(stats))
+    _emit(stats)
     return 0
 
 

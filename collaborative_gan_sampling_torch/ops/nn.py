@@ -18,13 +18,23 @@ functions. Three places where PyTorch's stock layers differ from Flax:
 * **BatchNorm.** Flax momentum 0.9 is torch momentum 0.1, eps 1e-5, and Flax
   updates the running variance with the *biased* batch variance;
   :class:`FlaxBatchNorm` does the same.
+
+Data parallelism (``parallel/mesh.py``): inside ``batch_stats_group(group)``
+a train-mode :class:`FlaxBatchNorm` takes its two moments, E[x] and E[x^2],
+over the whole batch of the group's ranks, as GSPMD computes them over a
+sharded batch in the JAX package; with no group (the default) nothing
+changes.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from collaborative_gan_sampling_torch.parallel.mesh import all_reduce_mean
 
 DCGAN_INIT_STD = 0.02  # carpedm20 DCGAN init: N(0, 0.02) kernels, zero bias
 # Std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
@@ -191,13 +201,31 @@ class LecunDense(Dense):
         nn.init.zeros_(self.bias)
 
 
+_BATCH_STATS_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Within, every train-mode ``FlaxBatchNorm`` all-reduces its batch
+    moments over ``group`` (None: each process keeps its own)."""
+    saved = _BATCH_STATS_GROUP[0]
+    _BATCH_STATS_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _BATCH_STATS_GROUP[0] = saved
+
+
 class FlaxBatchNorm(nn.Module):
     """BatchNorm over the channel axis of NCHW (or the last axis of (B, C))
     with Flax semantics: momentum 0.9 on the running averages, eps 1e-5,
     biased batch variance in both the normalisation and the running update.
     Statistics are taken in float32 whatever the compute dtype.
 
-    In training mode the running averages are updated in place."""
+    In training mode the running averages are updated in place, and inside
+    ``batch_stats_group(group)`` the moments are the mean of the ranks'
+    moments, through an all-reduce that autograd differentiates (twice,
+    for R1)."""
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -220,8 +248,11 @@ class FlaxBatchNorm(nn.Module):
         if self.training:
             # Flax's fast variance: E[x^2] - E[x]^2, clipped at 0.
             axes = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dim=axes)
-            var = (xf.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+            mean, sq = xf.mean(dim=axes), xf.square().mean(dim=axes)
+            group = _BATCH_STATS_GROUP[0]
+            if group is not None:
+                mean, sq = all_reduce_mean(group, torch.stack([mean, sq]))
+            var = (sq - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)

@@ -41,6 +41,16 @@ training and sampling phases:
   metrics mirrored to ``<workdir>/tb``) and ``teaser`` (JAX ``:797-833``).
 
 Everything runs on the card unless ``device`` says otherwise.
+
+``use_mesh`` (JAX ``pipeline.py:117-137``): data-parallel over the process
+group that ``parallel/multihost.py`` brought up, one process per card,
+when it has more than one process (JAX: more than one device). Train,
+refine and shaping batches are sharded over the ranks (``parallel/mesh.py``;
+their sizes must divide by the world size); every rank holds the same
+state and the same whole sample results, and evaluation runs unsharded on
+each, as in JAX. Only rank 0 writes files (checkpoints, ``train.jsonl``,
+the TensorBoard mirror, figures, the shaped D, caches, logs and
+artifacts); the ranks meet at a barrier after each write.
 """
 
 from __future__ import annotations
@@ -78,6 +88,14 @@ from collaborative_gan_sampling_torch.evals.kid import kid
 from collaborative_gan_sampling_torch.evals.metrics2d import metrics_2d
 from collaborative_gan_sampling_torch.evals.prd import precision_recall
 from collaborative_gan_sampling_torch.models import make_bundle
+from collaborative_gan_sampling_torch.parallel.mesh import (
+    barrier,
+    check_divisible,
+    make_group,
+    rank,
+    replicate,
+    world_size,
+)
 from collaborative_gan_sampling_torch.sampling.collab import (
     METHODS,
     SampleResult,
@@ -172,7 +190,8 @@ def _extend_axis(vals: list, side: str, integer: bool) -> int | float | None:
 
 
 class Experiment:
-    def __init__(self, cfg: Config, echo_metrics: bool = True,
+    def __init__(self, cfg: Config, use_mesh: bool = False,
+                 echo_metrics: bool = True,
                  device: str | torch.device | None = None):
         self.cfg = cfg.validate()
         self.bundle = make_bundle(cfg.model, device)
@@ -180,7 +199,15 @@ class Experiment:
         self.seed = cfg.seed
         self.workdir = cfg.workdir
         self.ckpt_dir = os.path.join(cfg.workdir, "ckpts")
-        self._echo = echo_metrics
+        self.group = (make_group(cfg.mesh.data_axis) if use_mesh
+                      and torch.distributed.is_initialized()
+                      and torch.distributed.get_world_size() > 1 else None)
+        if self.group is not None:
+            check_divisible({"train.batch_size": cfg.train.batch_size,
+                             "refine.batch_size": cfg.refine.batch_size},
+                            world_size(self.group))
+        self.writes = rank(self.group) == 0  # the rank that writes files
+        self._echo = echo_metrics and self.writes
 
         self.is_2d = cfg.model.kind == "mlp"
         if self.is_2d:
@@ -227,14 +254,13 @@ class Experiment:
                 if path:
                     state = restore_checkpoint(path, target=state,
                                                config=cfg)
+        replicate(self.group, (state.g, state.d, state.g_ema))
         spc = cfg.train.steps_per_call
         chunk = make_train_chunk(self.bundle, cfg.train, self.data_fn,
-                                 self.seed)
+                                 self.seed, group=self.group)
         # From-scratch runs truncate the log; resumes append to it.
-        writer = MetricsWriter(os.path.join(self.workdir, "train.jsonl"),
-                               echo=self._echo,
-                               tensorboard_dir=(os.path.join(self.workdir,
-                                                             "tb")
+        writer = MetricsWriter(self._path("train.jsonl"), echo=self._echo,
+                               tensorboard_dir=(self._path("tb")
                                                 if cfg.train.tensorboard
                                                 else None),
                                append=state.step > 0)
@@ -247,7 +273,7 @@ class Experiment:
                     if tail_chunk is None:
                         tail_chunk = make_train_chunk(
                             self.bundle, cfg.train, self.data_fn, self.seed,
-                            steps_per_call=remaining)
+                            steps_per_call=remaining, group=self.group)
                     state, metrics = tail_chunk(state)
                 else:
                     state, metrics = chunk(state)
@@ -264,12 +290,25 @@ class Experiment:
                     t_last, step_last = now, step
                 if cfg.train.ckpt_every and (
                         step % cfg.train.ckpt_every < spc or step >= niters):
-                    save_checkpoint(self.ckpt_dir, step, state, config=cfg)
+                    self._write(lambda: save_checkpoint(
+                        self.ckpt_dir, step, state, config=cfg))
                 if cfg.train.viz_every and step % cfg.train.viz_every < spc:
-                    self._training_viz(state, step)
+                    self._write(lambda: self._training_viz(state, step))
         finally:
             writer.close()
         return state
+
+    def _path(self, name: str) -> str | None:
+        """``<workdir>/name`` for a log that only the writing rank keeps;
+        None on the other ranks."""
+        return os.path.join(self.workdir, name) if self.writes else None
+
+    def _write(self, fn):
+        """``fn()`` (a file write) on the writing rank only, then a
+        barrier of the group's ranks; its result (None on the others)."""
+        out = fn() if self.writes else None
+        barrier(self.group)
+        return out
 
     def load_state(self) -> TrainState:
         """Restore the latest training checkpoint (the sampling phases'
@@ -279,7 +318,9 @@ class Experiment:
             raise FileNotFoundError(
                 f"no checkpoint under {self.ckpt_dir}; run train first")
         state = create_train_state(self.bundle, self.cfg.train, self.seed)
-        return restore_checkpoint(path, target=state, config=self.cfg)
+        state = restore_checkpoint(path, target=state, config=self.cfg)
+        replicate(self.group, (state.g, state.d, state.g_ema))
+        return state
 
     def load_or_train(self, niters: int | None = None) -> TrainState:
         """Trained state at the configured iteration count: the latest
@@ -312,7 +353,8 @@ class Experiment:
                    and self.dataset.labels is not None else None)
         return sample(self.bundle, sampling_g(state), d,
                       refine_cfg or self.cfg.refine, gen, method=method,
-                      data_fn=self.data_fn, cond_data_fn=cond_fn)
+                      data_fn=self.data_fn, cond_data_fn=cond_fn,
+                      group=self.group)
 
     def generate(self, state: TrainState, n: int, method: str | None = None,
                  use_shaped_d: bool = False,
@@ -328,13 +370,13 @@ class Experiment:
         gen = generator or step_generator(self.seed, 9, "eval", self.device)
         d = self._serving_d(state, method, use_shaped_d, gen)
         srv = ServingSampler(self.bundle, self.cfg.refine, method=method,
-                             class_id=class_id)
+                             class_id=class_id, group=self.group)
         samples, labels, stats = srv.generate(sampling_g(state), d, gen, n)
         if out:
             arrays = {"samples": samples.numpy()}
             if labels is not None:
                 arrays["labels"] = labels.numpy()
-            np.savez(out, **arrays)
+            self._write(lambda: np.savez(out, **arrays))
             stats["out"] = out
         return samples, labels, stats
 
@@ -346,7 +388,9 @@ class Experiment:
         calibration and, for collab, the shaped D baked in. The shaped D is
         found or made as ``generate`` does it, from the same generator, by
         default ``step_generator(seed, 11, "eval")``. Returns the sidecar
-        meta dict."""
+        meta dict. Data-parallel, the shaped D is made over the group and
+        the artifact (one process's program, as JAX exports without the
+        mesh) is written by rank 0; the other ranks read its sidecar."""
         from collaborative_gan_sampling_torch.sampling.export import (
             export_sampler,
         )
@@ -357,7 +401,12 @@ class Experiment:
         d = self._serving_d(state, method, use_shaped_d, gen)
         srv = ServingSampler(self.bundle, self.cfg.refine, method=method,
                              class_id=class_id)
-        return export_sampler(srv, sampling_g(state), d, gen, out)
+        meta = self._write(lambda: export_sampler(srv, sampling_g(state), d,
+                                                  gen, out))
+        if meta is None:
+            with open(out + ".json") as fh:
+                meta = json.load(fh)
+        return meta
 
     def _serving_d(self, state: TrainState, method: str, use_shaped_d: bool,
                    generator: torch.Generator) -> torch.nn.Module:
@@ -384,11 +433,15 @@ class Experiment:
             raise ValueError("result has no shaped_d (only collab sampling "
                              "shapes D)")
         path = shaped_d_path(self.workdir)
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as fh:
-            fh.write(msgpack.packb(to_jax_variables(shaped)))
-        os.replace(tmp, path)
+
+        def write():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                fh.write(msgpack.packb(to_jax_variables(shaped)))
+            os.replace(tmp, path)
+
+        self._write(write)
         return path
 
     def load_shaped_d(self, template: torch.nn.Module) -> torch.nn.Module:
@@ -514,8 +567,9 @@ class Experiment:
                 feature_fn, lambda g, n: self.data_fn(g, n)[0], nb,
                 cfg.fid_batch_size, gen)
             if cfg.real_stats_path:
-                save_stats(cfg.real_stats_path, self._real_stats,
-                           feature_net=self._feature_label)
+                self._write(lambda: save_stats(
+                    cfg.real_stats_path, self._real_stats,
+                    feature_net=self._feature_label))
         return self._real_stats
 
     @staticmethod
@@ -767,7 +821,7 @@ class Experiment:
                                         lambda rcfg=rcfg: run_cell(rcfg),
                                         label=f"grid {cell}")
                                     cell_s = time.perf_counter() - t0
-                                    if cache_path:
+                                    if cache_path and self.writes:
                                         _append_cache_line(
                                             cache_path, cell, table[cell])
                                     if progress:
@@ -820,7 +874,7 @@ class Experiment:
         """The methods side by side: ``evaluate`` of ``sample`` under each,
         one ``benchmark.jsonl`` line apiece (``phase="benchmark"``,
         ``method`` and the metrics, as the JAX package writes them)."""
-        writer = MetricsWriter(os.path.join(self.workdir, "benchmark.jsonl"),
+        writer = MetricsWriter(self._path("benchmark.jsonl"),
                                echo=self._echo)
         table = {}
         try:
@@ -840,7 +894,8 @@ class Experiment:
         and one ``sample(method="refinement")`` under
         ``record_function("refinement")``, after one warm chunk outside it.
         Trains ``state`` further. Returns the trace's directory,
-        ``<workdir>/trace``."""
+        ``<workdir>/trace``; data-parallel, every rank runs the same work
+        and rank 0 records it."""
         from torch.profiler import record_function
 
         from collaborative_gan_sampling_torch.utils.profiling import (
@@ -850,11 +905,11 @@ class Experiment:
 
         state = state if state is not None else self.load_or_train()
         chunk = make_train_chunk(self.bundle, self.cfg.train, self.data_fn,
-                                 self.seed)
+                                 self.seed, group=self.group)
         state, m = chunk(state)  # first-call set-up outside the trace
         block(m)
         logdir = os.path.join(self.workdir, "trace")
-        with trace(logdir):
+        with trace(self._path("trace")):
             for _ in range(chunks):
                 with record_function("train_chunk"):
                     state, m = chunk(state)
@@ -920,14 +975,18 @@ class Experiment:
             x0 = self.bundle.generate(sampling_g(state), z)
         x_k, aux = refine(state.d, x0)
         x_real, _ = self.data_fn(fold_generator(gen, 1), n_points * 4)
-        traj_path = plot_refinement_trajectories(
-            os.path.join(self.workdir, "teaser_trajectories.png"),
-            aux["traj"], self.spec)
-        overview_path = plot_2d_overview(
-            os.path.join(self.workdir, "overview.png"), self.bundle, state.d,
-            self.spec, x_real, x0, x_k,
-            title=f"{self.cfg.name} @ step {state.step}")
-        gif_path = save_teaser_gif(
-            os.path.join(self.workdir, "teaser.gif"), aux["traj"], self.spec)
-        return {"trajectories": traj_path, "overview": overview_path,
-                "gif": gif_path}
+        paths = {"trajectories": os.path.join(self.workdir,
+                                              "teaser_trajectories.png"),
+                 "overview": os.path.join(self.workdir, "overview.png"),
+                 "gif": os.path.join(self.workdir, "teaser.gif")}
+
+        def draw():
+            plot_refinement_trajectories(paths["trajectories"], aux["traj"],
+                                         self.spec)
+            plot_2d_overview(paths["overview"], self.bundle, state.d,
+                             self.spec, x_real, x0, x_k,
+                             title=f"{self.cfg.name} @ step {state.step}")
+            save_teaser_gif(paths["gif"], aux["traj"], self.spec)
+
+        self._write(draw)
+        return paths

@@ -25,6 +25,16 @@ per class (``estimate_logit_max_per_class``) and folds into the logits
 round's samples of that class and stays where the round has none. With
 ``class_balanced_shaping`` and a ``cond_data_fn(generator, labels)``, the
 shaping real batch holds the refined batch's labels.
+
+Data parallelism (``group``, ``parallel/mesh.py``; JAX ``collab.py:108-111``,
+``:302-433`` under a mesh). z is drawn whole and sliced; G and the
+refinement (the kernels among it) run on the rank's slice, and the samples
+and logits are gathered whole on every rank. M, its recalibration and the
+DRS mask (the kernel's in-kernel percentile among it) are then taken over
+the whole batch on every rank, from the same generator state, so every
+rank holds the same mask. Shaping's real batch is drawn whole and sliced,
+and its gradients are summed over the ranks (``ShapingStep``). Results are
+whole on every rank, so evaluation runs unsharded, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ import torch
 
 from collaborative_gan_sampling_torch.config import RefineConfig
 from collaborative_gan_sampling_torch.models import GANBundle
+from collaborative_gan_sampling_torch.parallel.mesh import (
+    run_sharded,
+    shard_batch,
+)
 from collaborative_gan_sampling_torch.sampling.mh import (
     fit_platt,
     make_mh_sampler,
@@ -75,36 +89,41 @@ class SampleResult(NamedTuple):
 def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
            generator: torch.Generator | None, method: str | None = None,
            data_fn: Callable | None = None,
-           cond_data_fn: Callable | None = None) -> SampleResult:
+           cond_data_fn: Callable | None = None, group=None) -> SampleResult:
     """Run a sampling strategy end to end on the bundle's device.
     ``data_fn(generator, n) -> (x, labels)`` supplies real batches (needed
     by collab shaping; used by mhgan for calibration and chain init);
     ``cond_data_fn(generator, labels) -> (x, labels)`` real batches of the
     given classes (collab's class-balanced shaping). The given ``d`` is
-    left as it is; collab returns the shaped copy in ``aux['shaped_d']``."""
+    left as it is; collab returns the shaped copy in ``aux['shaped_d']``.
+    ``group``: data-parallel over that process group (the same ``g`` and
+    ``d`` and generator state on every rank; the result whole on each)."""
     method = method or cfg.method
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {METHODS}")
     if method == "collab":
         return _sample_collab(bundle, g, d, cfg, generator, data_fn,
-                              cond_data_fn)
+                              cond_data_fn, group)
     if method == "mhgan":
-        return _sample_mhgan(bundle, g, d, cfg, generator, data_fn)
+        return _sample_mhgan(bundle, g, d, cfg, generator, data_fn, group)
     fn = {"standard": _sample_standard, "reject": _sample_reject,
           "refinement": _sample_refinement}[method]
-    return fn(bundle, g, d, cfg, generator)
+    return fn(bundle, g, d, cfg, generator, group)
 
 
 def _per_class_drs(bundle, cfg) -> bool:
     return cfg.per_class_drs and bundle.conditional
 
 
-def _draw(bundle, g, generator, n):
-    """z -> G(z), with a label per sample for a conditional pair."""
+def _draw(bundle, g, generator, n, group=None):
+    """z -> G(z), with a label per sample for a conditional pair; over a
+    ``group`` G runs on the rank's slice and x comes back whole."""
     z = bundle.sample_z(generator, n)
     labels = bundle.sample_labels(generator, n)
     with torch.no_grad():
-        return bundle.generate(g, z, labels, train=False), labels
+        x = run_sharded(group, lambda z_, lab: bundle.generate(
+            g, z_, lab, train=False), z, labels)
+    return x, labels
 
 
 def _result(xs, logits, labels, accepted=None, aux=None) -> SampleResult:
@@ -118,10 +137,10 @@ def _result(xs, logits, labels, accepted=None, aux=None) -> SampleResult:
     return SampleResult(samples, accepted, logits, labels, aux or {})
 
 
-def _sample_standard(bundle, g, d, cfg, generator):
+def _sample_standard(bundle, g, d, cfg, generator, group=None):
     xs, logits, labels = [], [], []
     for _ in range(cfg.num_batches):
-        x, lab = _draw(bundle, g, generator, cfg.batch_size)
+        x, lab = _draw(bundle, g, generator, cfg.batch_size, group)
         with torch.no_grad():
             logits.append(bundle.discriminate(d, x, lab, train=False))
         xs.append(x)
@@ -129,8 +148,8 @@ def _sample_standard(bundle, g, d, cfg, generator):
     return _result(xs, logits, labels)
 
 
-def _sample_refinement(bundle, g, d, cfg, generator):
-    draw_refine = make_draw_refine_fn(bundle, cfg)
+def _sample_refinement(bundle, g, d, cfg, generator, group=None):
+    draw_refine = make_draw_refine_fn(bundle, cfg, group)
     xs, logits, labels = [], [], []
     for _ in range(cfg.num_batches):
         x, lab, lg = draw_refine(g, d, generator, cfg.batch_size)
@@ -140,15 +159,17 @@ def _sample_refinement(bundle, g, d, cfg, generator):
     return _result(xs, logits, labels)
 
 
-def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
-    draw_refine = make_draw_refine_fn(bundle, cfg) if refine_first else None
+def _sample_reject(bundle, g, d, cfg, generator, group=None,
+                   refine_first=False):
+    draw_refine = (make_draw_refine_fn(bundle, cfg, group) if refine_first
+                   else None)
     per_class = _per_class_drs(bundle, cfg)
 
     def burn_sample(gen, n):
         if draw_refine is not None:
             x, labels, _ = draw_refine(g, d, gen, n)
             return x, labels
-        return _draw(bundle, g, gen, n)
+        return _draw(bundle, g, gen, n, group)
 
     if per_class:
         m = estimate_logit_max_per_class(bundle, d, burn_sample, generator,
@@ -161,7 +182,7 @@ def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
         if draw_refine is not None:
             x, lab, lg = draw_refine(g, d, generator, cfg.batch_size)
         else:
-            x, lab = _draw(bundle, g, generator, cfg.batch_size)
+            x, lab = _draw(bundle, g, generator, cfg.batch_size, group)
             with torch.no_grad():
                 lg = bundle.discriminate(d, x, lab, train=False)
         eff, eff_m = fold_per_class(lg, m, lab) if per_class else (lg, m)
@@ -175,12 +196,13 @@ def _sample_reject(bundle, g, d, cfg, generator, refine_first=False):
 
 
 @torch.no_grad()
-def _sample_mhgan(bundle, g, d, cfg, generator, data_fn):
+def _sample_mhgan(bundle, g, d, cfg, generator, data_fn, group=None):
     mh = make_mh_sampler(bundle, cfg.mh_chain_len)
     if data_fn is not None:
         x_real, labels_r = data_fn(generator, cfg.batch_size)
         lg_real = bundle.discriminate(d, x_real, labels_r, train=False)
-        x_fake, labels_f = _draw(bundle, g, generator, cfg.batch_size)
+        x_fake, labels_f = _draw(bundle, g, generator, cfg.batch_size,
+                                 group)
         lg_fake = bundle.discriminate(d, x_fake, labels_f, train=False)
         a, b = fit_platt(lg_real, lg_fake)
     else:
@@ -191,7 +213,7 @@ def _sample_mhgan(bundle, g, d, cfg, generator, data_fn):
         if data_fn is not None:
             x0, lab = data_fn(generator, cfg.batch_size)
         else:
-            x0, lab = _draw(bundle, g, generator, cfg.batch_size)
+            x0, lab = _draw(bundle, g, generator, cfg.batch_size, group)
         x, aux = mh(d, g, generator, x0, lab, a, b)
         xs.append(x)
         logits.append(bundle.discriminate(d, x, lab, train=False))
@@ -208,19 +230,20 @@ def _sample_mhgan(bundle, g, d, cfg, generator, data_fn):
         "platt_a": a, "platt_b": b})
 
 
-def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn):
+def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn,
+                   group=None):
     if data_fn is None:
         raise ValueError("collab sampling needs data_fn for D shaping")
     balanced = (cond_data_fn is not None and bundle.conditional
                 and cfg.class_balanced_shaping)
     per_class = _per_class_drs(bundle, cfg)
-    draw_refine = make_draw_refine_fn(bundle, cfg)
+    draw_refine = make_draw_refine_fn(bundle, cfg, group)
     shape_step = ShapingStep(
         bundle, cfg.shaping_lr, decay=cfg.shaping_decay,
         target=cfg.shaping_target, freeze_embed=cfg.shaping_freeze_embed,
         anchor=cfg.shaping_anchor,
         class_weight=cfg.shaping_class_weight and bundle.conditional,
-        r1_gamma=cfg.shaping_r1_gamma)
+        r1_gamma=cfg.shaping_r1_gamma, group=group)
     anchor_params = ([p.detach().clone() for p in d.parameters()]
                      if cfg.shaping_anchor > 0 else None)
     state = shape_step.init(d)
@@ -263,8 +286,10 @@ def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn):
                     x_real, labels_r = cond_data_fn(generator, lab)
                 else:
                     x_real, labels_r = data_fn(generator, cfg.batch_size)
-                state, loss = shape_step(state, x_real, x, labels_r, lab,
-                                         anchor_params)
+                state, loss = shape_step(
+                    state, *(shard_batch(group, t)
+                             for t in (x_real, x, labels_r, lab)),
+                    anchor_params)
         shape_losses.append(loss)
         xs.append(x)
         logits.append(lg)
@@ -274,6 +299,8 @@ def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn):
         "shaped_d": state.d.eval(), "shaping_steps_done": state.step})
 
 
-def sample_refine_reject(bundle, g, d, cfg, generator) -> SampleResult:
+def sample_refine_reject(bundle, g, d, cfg, generator,
+                         group=None) -> SampleResult:
     """Refinement followed by DRS rejection, no shaping."""
-    return _sample_reject(bundle, g, d, cfg, generator, refine_first=True)
+    return _sample_reject(bundle, g, d, cfg, generator, group,
+                          refine_first=True)

@@ -73,8 +73,16 @@ def export_sampler(sampler, g: torch.nn.Module, d: torch.nn.Module,
     int64 seed and returns ``(samples, labels or None, accept_mask,
     logits)`` for ``num_batches * batch_size`` candidates, exactly what
     ``sampler.round_seeded`` returns for the same seed. The file is written
-    atomically (``.tmp``, then ``os.replace``)."""
+    atomically (``.tmp``, then ``os.replace``). A sampler with a process
+    group is refused, as JAX refuses a mesh (``export.py:58-62``): the
+    artifact is one process's program."""
     from torch.fx.experimental.proxy_tensor import make_fx
+
+    if sampler.group is not None:
+        raise ValueError(
+            "export_sampler serialises one process's program; build the "
+            "ServingSampler with group=None (the export keeps every "
+            "batch of the round on one device)")
 
     device = sampler.bundle.device
     g, d = _frozen(g), _frozen(d)

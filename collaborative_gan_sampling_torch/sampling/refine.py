@@ -28,6 +28,12 @@ each step is one autograd graph through G and D, both in eval mode.
 ``make_draw_refine_fn`` draws z (and, for a conditional pair, labels unless
 the caller gives them) first; ``refine_samples`` is
 the one-shot call of ``make_refine_fn``.
+
+Data parallelism (``group``; JAX ``refine.py:173-236`` constrains z to the
+mesh's data axis): z is drawn whole, each rank refines its slice (through
+the kernels where their gates hold) and the refined batch and its logits
+are gathered whole on every rank. Langevin noise is drawn whole and sliced
+as well, so every draw advances the generator as in one process.
 """
 
 from __future__ import annotations
@@ -49,6 +55,11 @@ from collaborative_gan_sampling_torch.ops.refine_mlp import (
     fused_refine_mlp,
     mlp_layers,
     supports_mlp_refine_kernel,
+)
+from collaborative_gan_sampling_torch.parallel.mesh import (
+    run_sharded,
+    shard_batch,
+    world_size,
 )
 
 OBJECTIVES = ("ns", "kl", "saturating")
@@ -165,11 +176,24 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
     return refine
 
 
-def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
+def _sharded_noise(generator, group) -> Callable:
+    """A noise source for the rank's slice: N(0, I) drawn for the whole
+    batch from ``generator`` (see ``_normal_like``), the rank's slice
+    kept."""
+    def draw(x):
+        full = x.new_empty((x.shape[0] * world_size(group),) + x.shape[1:])
+        return shard_batch(group, _normal_like(full, generator))
+
+    return draw
+
+
+def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig,
+                     group=None) -> Callable:
     """Build ``refine_z(g, d, z, labels=None, generator=None, rate=None)
     -> (x, logits)``: K refinement steps of x0 = G(z) (``space='x'``) or
     of z, emitting G(z_K) (``space='z'``); ``generator`` serves the
-    Langevin noise only."""
+    Langevin noise only. With a ``group``, z (and labels) are the whole
+    batch, each rank refines its slice and (x, logits) come back whole."""
     if cfg.space not in ("x", "z"):
         raise ValueError(f"refine.space must be 'x' or 'z', got "
                          f"{cfg.space!r}")
@@ -177,6 +201,12 @@ def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
 
     def refine_z(g, d, z: torch.Tensor, labels: torch.Tensor | None = None,
                  generator=None, rate=None):
+        if group is not None and cfg.noise > 0:
+            generator = _sharded_noise(generator, group)
+        return run_sharded(group, lambda z_, lab: refine_local(
+            g, d, z_, lab, generator, rate), z, labels)
+
+    def refine_local(g, d, z, labels, generator, rate):
         if cfg.space == "z":
             rate = cfg.rate if rate is None else rate
 
@@ -197,11 +227,13 @@ def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
     return refine_z
 
 
-def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig) -> Callable:
+def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig,
+                        group=None) -> Callable:
     """Build ``draw_refine(g, d, generator, n, labels=None, rate=None)
     -> (x, labels, logits)``: z ~ N(0, I) (then labels, for a conditional
-    pair given none), and ``make_refine_z_fn``'s refinement of z."""
-    refine_z = make_refine_z_fn(bundle, cfg)
+    pair given none), and ``make_refine_z_fn``'s refinement of z (over
+    ``group``'s ranks, the whole batch back on each)."""
+    refine_z = make_refine_z_fn(bundle, cfg, group)
 
     def draw_refine(g, d, generator: torch.Generator | None, n: int,
                     labels: torch.Tensor | None = None, rate=None):

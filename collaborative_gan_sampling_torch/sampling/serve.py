@@ -29,6 +29,13 @@ int64 seed tensor by counter-based Philox on tensor ops
 (``utils/prng.py``), which is what ``sampling/export.py`` traces into its
 artifact: a ``torch.Generator`` cannot be an input of an exported program.
 The two give different draws, as JAX's artifact draws from its own key.
+
+With a ``group`` (JAX ``serve.py:68-109`` under a mesh) the candidates of a
+batch are drawn whole, G and the refinement run on the rank's slice, and
+the batch and its logits are gathered whole, so calibration and the accept
+step see the whole batch on every rank, as in ``sampling/collab.py``. An
+exported artifact is one process's program (``sampling/export.py``
+refuses a sampler with a group).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from collaborative_gan_sampling_torch.config import RefineConfig
 from collaborative_gan_sampling_torch.data.images import denormalize_images
 from collaborative_gan_sampling_torch.models import GANBundle
+from collaborative_gan_sampling_torch.parallel.mesh import run_sharded
 from collaborative_gan_sampling_torch.sampling.refine import (
     make_refine_z_fn,
 )
@@ -71,7 +79,8 @@ class ServingSampler:
     """
 
     def __init__(self, bundle: GANBundle, cfg: RefineConfig,
-                 method: str = "collab", class_id: int | None = None):
+                 method: str = "collab", class_id: int | None = None,
+                 group=None):
         if method not in SERVING_METHODS:
             raise ValueError(
                 f"serving supports {SERVING_METHODS}, not {method!r}")
@@ -81,11 +90,11 @@ class ServingSampler:
             raise ValueError(
                 f"class_id {class_id} out of range [0, {bundle.num_classes})")
         self.bundle, self.cfg, self.method = bundle, cfg, method
-        self.class_id = class_id
+        self.class_id, self.group = class_id, group
         self._refine_on = method in ("refinement", "collab")
         self._reject_on = method in ("reject", "collab")
         self._per_class = cfg.per_class_drs and bundle.conditional
-        self._refine_z = (make_refine_z_fn(bundle, cfg)
+        self._refine_z = (make_refine_z_fn(bundle, cfg, group)
                           if self._refine_on else None)
 
     def _labels_for(self, generator, n: int) -> torch.Tensor | None:
@@ -102,7 +111,8 @@ class ServingSampler:
         if self._refine_on:
             return self._refine_z(g, d, z, labels, generator)
         with torch.no_grad():
-            x = self.bundle.generate(g, z, labels, train=False)
+            x = run_sharded(self.group, lambda z_, lab: self.bundle.generate(
+                g, z_, lab, train=False), z, labels)
             return x, self.bundle.discriminate(d, x, labels, train=False)
 
     def _draw_score(self, g, d, generator, n: int):

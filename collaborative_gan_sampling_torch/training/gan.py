@@ -23,6 +23,16 @@ update of index ``step``) takes a real batch (with its labels), z and, for
 a conditional pair, fake labels from its "data" stream; the G update of
 index ``step * g_steps + i`` takes z and fake labels from its "z" stream.
 Parity tests replace it with arrays that JAX drew from its own keys.
+
+Data parallelism (``group``, ``parallel/mesh.py``; JAX ``gan.py:139-152``
+shards the same chunk over a mesh). Every rank draws the whole global batch
+from the same stream and keeps its slice, so the streams advance as in one
+process; BatchNorm takes its moments over the whole batch
+(``ops/nn.py::batch_stats_group``); each rank's loss is scaled by 1 / world
+size, so that the sum over ranks is the global mean, and the gradients are
+summed over the ranks before each Adam step; every rank steps the same
+Adam and the same EMA generator. The chunk's metrics are the means over
+the ranks. With ``group=None`` none of this runs.
 """
 
 from __future__ import annotations
@@ -38,6 +48,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from collaborative_gan_sampling_torch.config import TrainConfig
+from collaborative_gan_sampling_torch.ops.nn import batch_stats_group
+from collaborative_gan_sampling_torch.parallel.mesh import (
+    all_reduce_mean,
+    shard_batch,
+    sum_gradients,
+    world_size,
+)
 from collaborative_gan_sampling_torch.utils.prng import (
     step_generator,
     step_seed,
@@ -130,11 +147,13 @@ class TrainDraws:
     index, role) on the bundle's device: ``d_batch(index)`` gives (real
     batch, its labels, z, fake labels) for a D or FusedProp update,
     ``g_batch(index)`` (z, fake labels) for a G update; labels are None
-    for an unconditional pair."""
+    for an unconditional pair. With a ``group``, each is drawn whole and
+    the rank's slice is returned."""
 
-    def __init__(self, bundle, data_fn: DataFn, seed: int, batch_size: int):
+    def __init__(self, bundle, data_fn: DataFn, seed: int, batch_size: int,
+                 group=None):
         self.bundle, self.data_fn = bundle, data_fn
-        self.seed, self.batch_size = seed, batch_size
+        self.seed, self.batch_size, self.group = seed, batch_size, group
         # One generator, reseeded per draw: the stream a fresh generator
         # of that seed would give.
         self._generator = torch.Generator(device=bundle.device)
@@ -147,13 +166,15 @@ class TrainDraws:
         gen = self._gen(index, "data")
         x_real, labels_r = self.data_fn(gen, self.batch_size)
         z = self.bundle.sample_z(gen, self.batch_size)
-        return x_real, labels_r, z, self.bundle.sample_labels(
-            gen, self.batch_size)
+        draws = (x_real, labels_r, z,
+                 self.bundle.sample_labels(gen, self.batch_size))
+        return tuple(shard_batch(self.group, t) for t in draws)
 
     def g_batch(self, index: int):
         gen = self._gen(index, "z")
         z = self.bundle.sample_z(gen, self.batch_size)
-        return z, self.bundle.sample_labels(gen, self.batch_size)
+        draws = (z, self.bundle.sample_labels(gen, self.batch_size))
+        return tuple(shard_batch(self.group, t) for t in draws)
 
 
 @contextlib.contextmanager
@@ -170,8 +191,8 @@ def _stats_kept(module: nn.Module):
 
 
 def _apply(opt: torch.optim.Adam, params: list[torch.Tensor],
-           grads) -> None:
-    for p, g in zip(params, grads):
+           grads, group=None) -> None:
+    for p, g in zip(params, sum_gradients(group, grads)):
         p.grad = g
     opt.step()
     for p in params:
@@ -180,13 +201,21 @@ def _apply(opt: torch.optim.Adam, params: list[torch.Tensor],
 
 def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
                      seed: int = 0, steps_per_call: int | None = None,
-                     draws: TrainDraws | None = None):
+                     draws: TrainDraws | None = None, group=None):
     """``chunk(state) -> (state, metrics)``: ``steps_per_call`` train
     iterations on ``state`` (updated in place and returned) and the mean of
     each metric over them, as 0-d tensors on the device. ``draws`` replaces
-    the seeded draws from ``data_fn`` (the parity tests' seam)."""
+    the seeded draws from ``data_fn`` (the parity tests' seam; with a
+    ``group`` they must be the rank's slices). ``group``: data-parallel
+    over that process group, every rank holding the same ``state``."""
     n_steps = steps_per_call or cfg.steps_per_call
-    draws = draws or TrainDraws(bundle, data_fn, seed, cfg.batch_size)
+    draws = draws or TrainDraws(bundle, data_fn, seed, cfg.batch_size,
+                                group)
+    # Each rank's share of the global mean (1.0 in one process).
+    share = 1.0 / world_size(group)
+
+    def scaled(loss: torch.Tensor) -> torch.Tensor:
+        return loss if group is None else loss * share
 
     def d_update(state: TrainState, x_real, labels_r, z, labels_f) -> dict:
         params = list(state.d.parameters())
@@ -200,7 +229,8 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
         loss = nonsaturating_d_loss(lr_real, lr_fake)
         if r1 is not None:
             loss = loss + 0.5 * cfg.r1_gamma * r1
-        _apply(state.d_opt, params, torch.autograd.grad(loss, params))
+        _apply(state.d_opt, params,
+               torch.autograd.grad(scaled(loss), params), group)
         metrics = {"d_loss": loss.detach(), "d_real": lr_real.detach().mean(),
                    "d_fake": lr_fake.detach().mean()}
         if r1 is not None:
@@ -214,7 +244,8 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
             x_fake = bundle.generate(state.g, z, labels, train=True)
             logits = bundle.discriminate(state.d, x_fake, labels, train=True)
         loss = nonsaturating_g_loss(logits)
-        _apply(state.g_opt, params, torch.autograd.grad(loss, params))
+        _apply(state.g_opt, params,
+               torch.autograd.grad(scaled(loss), params), group)
         return {"g_loss": loss.detach()}
 
     def fused_update(state: TrainState, x_real, labels_r, z,
@@ -230,11 +261,11 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
         loss_real = F.softplus(-lr).mean()
         if r1 is not None:
             loss_real = loss_real + 0.5 * cfg.r1_gamma * r1
-        d_grads_real = torch.autograd.grad(loss_real, d_params)
+        d_grads_real = torch.autograd.grad(scaled(loss_real), d_params)
         # The fake pass's statistics go on top of the real pass's.
         lf = bundle.discriminate(state.d, x_fake, labels_f, train=True)
         lf_ = lf.detach()
-        inv_b = 1.0 / lf.shape[0]
+        inv_b = 1.0 / (lf.shape[0] * world_size(group))  # the global B
         # The D cotangent goes to D's params only, never into G.
         d_grads_fake = torch.autograd.grad(
             lf, d_params, grad_outputs=torch.sigmoid(lf_) * inv_b,
@@ -242,8 +273,8 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
         g_grads = torch.autograd.grad(
             lf, g_params, grad_outputs=-torch.sigmoid(-lf_) * inv_b)
         _apply(state.d_opt, d_params,
-               [a + b for a, b in zip(d_grads_real, d_grads_fake)])
-        _apply(state.g_opt, g_params, g_grads)
+               [a + b for a, b in zip(d_grads_real, d_grads_fake)], group)
+        _apply(state.g_opt, g_params, g_grads, group)
         metrics = {"d_loss": loss_real.detach() + F.softplus(lf_).mean(),
                    "g_loss": F.softplus(-lf_).mean(),
                    "d_real": lr.detach().mean(), "d_fake": lf_.mean()}
@@ -280,8 +311,13 @@ def make_train_chunk(bundle, cfg: TrainConfig, data_fn: DataFn | None = None,
         return metrics
 
     def chunk(state: TrainState):
-        ms = [train_step(state) for _ in range(n_steps)]
-        return state, {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
+        with batch_stats_group(group):
+            ms = [train_step(state) for _ in range(n_steps)]
+        means = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        if group is not None:  # the ranks' means, in one all-reduce
+            vals = all_reduce_mean(group, torch.stack(
+                [v.float() for v in means.values()]))
+            means = {k: v.to(means[k].dtype) for k, v in zip(means, vals)}
+        return state, means
 
     return chunk

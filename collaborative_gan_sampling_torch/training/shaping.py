@@ -3,6 +3,12 @@
 Counterpart of ``collaborative_gan_sampling_tpu/training/shaping.py``. D is
 fine-tuned on (real, refined) batches with the non-saturating D loss and its
 own Adam (b1 = 0.5, eps 1e-8) at ``shaping_lr``; G stays frozen.
+
+With a ``group`` (``parallel/mesh.py``) each rank takes its slice of the
+(real, refined) pair: BatchNorm moments, the separation test and the class
+weights are taken over the whole batch, each rank's loss is scaled by
+1 / world size and the gradients are summed over the ranks before Adam
+steps, so every rank holds the same shaped D.
 """
 
 from __future__ import annotations
@@ -14,6 +20,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from collaborative_gan_sampling_torch.ops.nn import batch_stats_group
+from collaborative_gan_sampling_torch.parallel.mesh import (
+    all_gather,
+    all_reduce_mean,
+    shard_batch,
+    sum_gradients,
+    world_size,
+)
 from collaborative_gan_sampling_torch.training.gan import (
     nonsaturating_d_loss,
     real_pass,
@@ -54,15 +68,18 @@ class ShapingStep:
     * ``class_weight``: with both label sets given, each term of the loss
       is the mean of ``class_weights`` times the per-sample loss, so each
       class present weighs the same.
+    * ``group``: data-parallel; the step takes the rank's slices of the
+      pair (and labels), and the returned loss is the global one.
     """
 
     def __init__(self, bundle, lr: float, decay: float = 1.0,
                  target: float = 0.0, anchor: float = 0.0,
                  r1_gamma: float = 0.0, freeze_embed: bool = False,
-                 class_weight: bool = False):
+                 class_weight: bool = False, group=None):
         self.bundle, self.lr, self.decay = bundle, lr, decay
         self.target, self.anchor, self.r1_gamma = target, anchor, r1_gamma
         self.freeze_embed, self.class_weight = freeze_embed, class_weight
+        self.group = group
 
     def init(self, d: nn.Module) -> ShapingState:
         d = copy.deepcopy(d)
@@ -73,7 +90,20 @@ class ShapingStep:
     def __call__(self, state: ShapingState, x_real: torch.Tensor,
                  x_refined: torch.Tensor, labels_r=None, labels_f=None,
                  anchor_params: list[torch.Tensor] | None = None):
-        d, bundle = state.d, self.bundle
+        with batch_stats_group(self.group):
+            return self._step(state, x_real, x_refined, labels_r, labels_f,
+                              anchor_params)
+
+    def _weights(self, labels: torch.Tensor) -> torch.Tensor:
+        """``class_weights`` over the group's whole batch, the rank's
+        slice of them."""
+        full = all_gather(self.group, labels)
+        return shard_batch(self.group,
+                           class_weights(full, self.bundle.num_classes))
+
+    def _step(self, state, x_real, x_refined, labels_r, labels_f,
+              anchor_params):
+        d, bundle, group = state.d, self.bundle, self.group
         stats = ([b.detach().clone() for b in d.buffers()]
                  if self.target > 0 else None)
         # Real pass first; the fake pass updates BN statistics on top of it.
@@ -82,8 +112,7 @@ class ShapingStep:
                                       train=True)
         if (self.class_weight and labels_r is not None
                 and labels_f is not None):
-            w_r = class_weights(labels_r, bundle.num_classes)
-            w_f = class_weights(labels_f, bundle.num_classes)
+            w_r, w_f = self._weights(labels_r), self._weights(labels_f)
             loss = ((w_r * F.softplus(-lr_real)).mean()
                     + (w_f * F.softplus(lr_fake)).mean())
         else:
@@ -94,15 +123,24 @@ class ShapingStep:
             loss = loss + 0.5 * self.anchor * sq
         if r1 is not None:
             loss = loss + 0.5 * self.r1_gamma * r1
+        reported = all_reduce_mean(group, loss.detach())
         if self.target > 0:
-            sep = lr_real.mean() - lr_fake.mean()
+            sep = all_reduce_mean(group, (lr_real.mean()
+                                          - lr_fake.mean()).detach())
             if not bool(sep > self.target):
                 with torch.no_grad():
                     for b, saved in zip(d.buffers(), stats):
                         b.copy_(saved)
-                return state, loss.detach()
+                return state, reported
         state.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if group is None:
+            loss.backward()
+        else:
+            params = list(d.parameters())
+            grads = torch.autograd.grad(loss / world_size(group), params,
+                                        allow_unused=True)
+            for p, g in zip(params, sum_gradients(group, grads)):
+                p.grad = g
         if self.freeze_embed:
             for name, p in d.named_parameters():
                 if "embed" in name.lower():
@@ -111,4 +149,4 @@ class ShapingStep:
             group["lr"] = self.lr * self.decay ** state.step
         state.opt.step()
         state.step += 1
-        return state, loss.detach()
+        return state, reported

@@ -83,6 +83,24 @@ def test_eval_entry_points_need_a_card_unless_told(monkeypatch):
         inception.init_inception()
 
 
+@pytest.mark.parametrize("main", ["main_synthetic", "main_mnist",
+                                  "main_celeba"])
+def test_compat_mains_need_a_card_unless_told(monkeypatch, tmp_path, main):
+    """The reference-flag scripts run on the card unless given
+    ``--device cpu``."""
+    import importlib
+
+    module = importlib.import_module(
+        f"collaborative_gan_sampling_torch.compat.{main}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--mode", "train", "--niters", "1", "--batch_size", "8",
+            "--checkpoint_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(argv)
+    if main == "main_synthetic":  # the others load image data first
+        assert module.main(argv + ["--device", "cpu"]) == 0
+
+
 def _run_smoke(cwd: Path, script: Path):
     return subprocess.run([sys.executable, str(script)], cwd=cwd,
                           capture_output=True, text=True, timeout=120)
