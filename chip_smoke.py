@@ -16,10 +16,11 @@ Phases, each of which raises (and exits non-zero) on failure:
              refine kernel also at B = 1, a block whose second sample is
              dead; the MLP kernel at B = 1, 37, 256, 1,001 and 65,536, each
              on the tile its wrapper picks: 2 up to 264 samples, else 8),
-             TF32 off; the bf16 conv refine kernel
-             also against the f32 one, from which it must differ by more
-             than its bounds; the DRS accept step with and without its
-             percentile on both routes (one launch up to 4,096 logits, the
+             TF32 off; the bf16 conv refine kernel also at B = 2,048
+             (bench_torch.py's mnist batch, 1,024 blocks) and against the
+             f32 one, from which it must differ by more than its bounds;
+             the DRS accept step with and without its percentile on both
+             routes (one launch up to 4,096 logits, the
              tensor-op percentile above), its gamma_total against
              torch.quantile's;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
@@ -162,6 +163,23 @@ Phases, each of which raises (and exits non-zero) on failure:
              of 2: round 0's samples and mask equal to one process bit for
              bit, kernel #4 once a round (and burn-in round) on each rank;
 
+9. entry points - run after 8, before 6x: ``bench_torch.py``'s
+             ``measure_refine_throughput`` in this process at bench.py's
+             batches and protocol (mnist 2,048, celeba and imagenet64 512,
+             K = 10, 20 rounds a call, a warm-up and 3 timed calls, best
+             kept) with the launch counters (kernel #4 once a round on
+             mnist: 80; none on the others), rates and ``mfu_pct`` printed;
+             one more mnist call profiled (host launches a round, device
+             busy share, kernel #4's device time at B = 2,048);
+             ``python3 bench_torch.py --secondary none`` in a child (rc 0,
+             a last line with bench.py's keys, the card named,
+             ``vs_baseline`` null); the ``examples_torch/`` scripts that
+             need neither matplotlib nor TensorFlow (custom_data,
+             shaped_d_reuse, export_serving, inception_fid) in children at
+             once with ``--device cuda`` and NITERS=50 under
+             ``runs/smoke_entry`` (removed after), each to exit 0; a line
+             for each of the others names the package it needs;
+
 Between phases 5 and 6, one DRS step through ``sampling/rejection.py`` is
 profiled: the key's draw and the kernel, at most two launches.
 
@@ -194,6 +212,7 @@ PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
 
 BATCH, STEPS, RATE = 256, 10, 0.02  # the mnist preset's refine shape
+BENCH_BATCH = 2048  # bench_torch.py's mnist batch (phase 9): 1,024 blocks
 RAGGED = 37
 REFINE_ATOL = 1e-5  # f32 sums in another order over K = 10 steps
 # The bf16 kernel against its plain version: the same f32 sums of exact
@@ -611,7 +630,7 @@ def bf16_refine_cases(torch, dev):
     d, gen = refine_d(torch, dev)
     params = fold_dcgan_d(d)
     worst = 0.0
-    for n in (BATCH, RAGGED):
+    for n in (BATCH, RAGGED, BENCH_BATCH):
         x0 = torch.randn(n, 28, 28, 1, device=dev, generator=gen) * 0.5
         beyond, allowed, wx, wl, gx, gl = bf16_case(torch, params, x0)
         if len(beyond) > allowed:
@@ -2924,6 +2943,185 @@ def compat_parallel_phase(torch, dev, trained):
     return total, seconds
 
 
+# Phase 9: the repo's own entry points, after 8 and before 6x, in a workdir
+# under runs/smoke_entry (gitignored; removed at the end). bench_torch's
+# measurement in this process at bench.py's batches and protocol (K = 10, 20
+# rounds a call, one warm-up and 3 timed calls), one more mnist call
+# profiled, ``python3 bench_torch.py --secondary none`` in a child, and the
+# example scripts of examples_torch/ in children, all at once.
+BENCH_PRESETS = (("mnist", BENCH_BATCH), ("celeba", 512),
+                 ("imagenet64", 512))
+BENCH_ROUNDS, BENCH_REPEATS = 20, 3
+EXAMPLES_ON_CARD = ("custom_data", "shaped_d_reuse", "export_serving",
+                    "inception_fid")
+# The examples that need a package the card's machine may lack.
+EXAMPLES_NEED = {"quickstart_2d": "matplotlib", "migrate_tf1": "tensorflow"}
+ENTRY_DIR = os.path.join(REPO, "runs", "smoke_entry")
+
+
+def bench_measurements(torch, dev, counters):
+    """bench_torch.measure_refine_throughput for each of BENCH_PRESETS with
+    the counters set to 0 just before: kernel #4 once a round on mnist
+    (rounds x (1 + repeats)), no refine or accept kernel on the others
+    (autograd refinement, no accept step). Returns {preset: result} and
+    the launches summed."""
+    import bench_torch
+
+    out, total = {}, {k: 0 for k in counters}
+    for preset, batch in BENCH_PRESETS:
+        res, seconds, launches = counted(
+            torch, lambda: bench_torch.measure_refine_throughput(
+                batch, STEPS, BENCH_ROUNDS, BENCH_REPEATS, preset, dev),
+            counters)
+        per_call = BENCH_ROUNDS if preset == "mnist" else 0
+        want = {"conv_refine28_bf16": per_call * (1 + BENCH_REPEATS),
+                "conv_refine28": 0, "drs_accept": 0}
+        print(f"   {preset} B={batch} K={STEPS}: {res['samples_per_sec']:.1f} "
+              f"refined samples/s (best of {BENCH_REPEATS}), "
+              f"{1e3 * res['sec_per_batch']:.3f} ms a round, mfu_pct "
+              f"{res['mfu_pct']}; the call {seconds:.1f} s; launches "
+              f"{launches}")
+        if launches != want:
+            raise AssertionError(f"bench {preset}: launches {launches}, want "
+                                 f"{want}")
+        if not (res["samples_per_sec"] > 0 and res["mfu_pct"] is not None
+                and 0 < res["mfu_pct"] < 100):
+            raise AssertionError(f"bench {preset}: {res}")
+        out[preset] = res
+        for k, n in launches.items():
+            total[k] += n
+    return out, total
+
+
+def bench_profile(torch, dev):
+    """One more mnist call of bench_torch (B = 2,048, 20 rounds), untimed
+    and profiled: host launches a round, device busy share of the wall,
+    kernel #4's device time per launch."""
+    import bench_torch
+
+    from collaborative_gan_sampling_torch.ops.conv_refine import (
+        refine_flops_per_sample,
+    )
+
+    batch = BENCH_PRESETS[0][1]
+    run, _, _ = bench_torch.make_run(batch, STEPS, BENCH_ROUNDS, "mnist", dev)
+    run(1)
+    torch.cuda.synchronize()
+    wall, kernels, averages = profiled(torch, lambda: run(7))
+    busy = sum(ms for ms, _ in kernels.values())
+    k4 = [(ms, n) for k, (ms, n) in kernels.items()
+          if "refine_bf16_kernel" in k]
+    launches = sum(n for _, n in k4)
+    if not 0 < launches <= BENCH_ROUNDS:
+        raise AssertionError(f"profiler saw {launches} launches of kernel #4 "
+                             f"in {BENCH_ROUNDS} rounds")
+    out = {"launches_per_round": host_launches(averages) / BENCH_ROUNDS,
+           "busy": busy / (wall * 1e3),
+           "k4_ms": sum(ms for ms, _ in k4) / launches,
+           "k4_share": sum(ms for ms, _ in k4) / busy,
+           # As phase 7 bounds it: in-range taps at the bf16 peak.
+           "k4_bound_ms": (refine_flops_per_sample(STEPS) * batch
+                           / PEAK_BF16_FLOPS * 1e3)}
+    print_profile(f"bench_torch mnist, B={batch}, {BENCH_ROUNDS} rounds",
+                  wall, kernels, averages)
+    print(f"   {out['launches_per_round']:.1f} host launches a round, device "
+          f"busy {100 * out['busy']:.1f}% of the wall; kernel #4 "
+          f"{out['k4_ms']:.4f} ms on the device per launch at B={batch} "
+          f"({100 * out['k4_share']:.1f}% of the device time; bound "
+          f"{out['k4_bound_ms']:.4f} ms by operations, "
+          f"{100 * out['k4_bound_ms'] / out['k4_ms']:.1f}% of it)")
+    return out
+
+
+def bench_child(card: str) -> dict:
+    """``python3 bench_torch.py --secondary none`` from the repo root: rc 0
+    and a last line with bench.py's keys, the card named, vs_baseline
+    null."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "bench_torch.py", "--secondary",
+                           "none"], capture_output=True, text=True, cwd=REPO,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"   bench_torch.py --secondary none ({time.perf_counter() - t0:.1f}"
+          f" s): {json.dumps(line)}")
+    keys = {"metric", "value", "unit", "vs_baseline", "mfu_pct", "device"}
+    if not (keys <= set(line) and line["value"] > 0
+            and line["vs_baseline"] is None and line["device"] == card
+            and line["metric"] == "refined_samples_per_sec_per_chip_k10_"
+                                  "mnist"):
+        raise AssertionError(f"bench_torch.py's line: {line}")
+    return line
+
+
+def examples_children() -> dict:
+    """The example scripts that this machine's packages allow, each in a
+    child with ``--device cuda`` and NITERS=50, all started at once, in
+    ENTRY_DIR (their relative ``runs/`` lands there); a child that exits
+    non-zero fails the phase. The others are named with the package they
+    lack. Returns {script: seconds}."""
+    import importlib.util
+
+    for script, lib in EXAMPLES_NEED.items():
+        have = importlib.util.find_spec(lib) is not None
+        print(f"   {script}.py: {lib} is "
+              + ("installed here, but " if have else "not installed here: ")
+              + "not run on this machine")
+    os.makedirs(ENTRY_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for script in EXAMPLES_ON_CARD:  # output to files: no pipe fills up
+        log = os.path.join(ENTRY_DIR, f"{script}.log")
+        with open(log, "w") as fh:
+            procs[script] = (log, subprocess.Popen(
+                [sys.executable,
+                 os.path.join(REPO, "examples_torch", f"{script}.py"),
+                 "--device", "cuda"], cwd=ENTRY_DIR,
+                env=dict(os.environ, PYTHONPATH=REPO, NITERS="50"),
+                stdout=fh, stderr=subprocess.STDOUT))
+    seconds, failed = {}, []
+    for script, (log, proc) in procs.items():
+        rc = proc.wait(timeout=600)
+        seconds[script] = time.perf_counter() - t0
+        with open(log) as fh:
+            text = fh.read()
+        tail = text.strip().splitlines()[-1:] or [""]
+        print(f"   {script}.py: rc {rc}, done {seconds[script]:.1f} s after "
+              f"the start; {tail[0][:200]}")
+        if rc != 0:
+            failed.append(f"{script}.py (rc {rc}):\n{text[-3000:]}")
+    if failed:
+        raise AssertionError("example scripts failed: " + "\n".join(failed))
+    return seconds
+
+
+def entry_points_phase(torch, dev, card):
+    """Phase 9. Returns the kernels' launches in the in-process bench runs
+    and the phase's numbers."""
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into 9]"
+
+    phase("9: bench_torch.measure_refine_throughput in this process "
+          "(mnist 2,048, celeba and imagenet64 512, K = 10)" + at())
+    out, launches = bench_measurements(torch, dev, conv_counters())
+    phase("9: one more mnist bench call, profiled" + at())
+    out["profile"] = bench_profile(torch, dev)
+    phase("9: python3 bench_torch.py --secondary none in a child" + at())
+    out["child"] = bench_child(card)
+    phase("9: examples_torch/ in child processes (--device cuda, "
+          "NITERS=50)" + at())
+    out["examples"] = examples_children()
+    shutil.rmtree(ENTRY_DIR)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"   phase 9: {out['seconds']:.1f} s; launches {launches}")
+    return launches, out
+
+
 def serving_phase(torch, dev, toy, mnist):
     """``ServingSampler(..., "collab").generate`` on each preset under its
     shaped D, with the launch counters of the kernels it must reach."""
@@ -3409,6 +3607,11 @@ def main() -> None:
     p8_launches, p8_seconds = compat_parallel_phase(torch, dev, trained)
     for k, n in p8_launches.items():
         launches[k] += n
+    # Phase 9 after 8, before 6x; its bench runs counted from 0 (the child
+    # processes' launches are theirs).
+    entry_launches, entry = entry_points_phase(torch, dev, card)
+    for k, n in entry_launches.items():
+        launches[k] += n
     # Phase 6x last: after the export in this process, torch.profiler's
     # later sessions here lost every device record of a kernel (three
     # sessions of 10 launches each on one H100).
@@ -3491,6 +3694,14 @@ def main() -> None:
           + f"; launches in the phase {files_launches}")
     print(f"   compat and parallel (phase 8, {p8_seconds:.1f} s): "
           f"launches {p8_launches}")
+    prof = entry["profile"]
+    print(f"   entry points (phase 9, {entry['seconds']:.1f} s): bench_torch "
+          + ", ".join(f"{p} B={b} {entry[p]['samples_per_sec']:.1f} refined "
+                      f"samples/s (mfu_pct {entry[p]['mfu_pct']})"
+                      for p, b in BENCH_PRESETS)
+          + f"; mnist {prof['launches_per_round']:.1f} host launches a "
+          f"round, device busy {100 * prof['busy']:.1f}%, kernel #4 "
+          f"{prof['k4_ms']:.4f} ms on the device at B={BENCH_BATCH} ({card})")
     for name in ("mnist", "toy2d"):
         x = exported[name]
         print(f"   export ({name} collab serving round, "

@@ -54,6 +54,24 @@ class _Program(torch.nn.Module):
         return self.traced(seed)
 
 
+def _views_as_reshapes(traced: torch.fx.GraphModule) -> torch.fx.GraphModule:
+    """``traced`` with each ``aten.view`` node made an ``aten.reshape``.
+
+    ``make_fx`` on real tensors records a ``reshape`` as ``aten.view``
+    wherever the real strides allow one. ``torch.export`` traces that graph
+    again on fake tensors, whose strides can differ from the real ones: on
+    the card, the export of a round refined by autograd failed at D's NHWC
+    flatten, a view on the real strides of D's features and none on their
+    fake strides (a contiguous NCHW tensor, permuted). A reshape is a view
+    where the strides allow it and a copy elsewhere: the same values either
+    way. No op of the round writes in place through a view."""
+    for node in traced.graph.nodes:
+        if node.target is torch.ops.aten.view.default:
+            node.target = torch.ops.aten.reshape.default
+    traced.recompile()
+    return traced
+
+
 def _frozen(module: torch.nn.Module) -> torch.nn.Module:
     """An eval-mode copy whose parameters need no gradient: the program
     holds them as weights, not as leaves of a graph."""
@@ -92,7 +110,8 @@ def export_sampler(sampler, g: torch.nn.Module, d: torch.nn.Module,
         return sampler.round_seeded(g, d, m, seed)
 
     seed = torch.zeros(1, dtype=torch.int64, device=device)
-    traced = make_fx(serve_round, tracing_mode="real")(seed)
+    traced = _views_as_reshapes(
+        make_fx(serve_round, tracing_mode="real")(seed))
     exported = torch.export.export(_Program(traced), (seed,))
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:

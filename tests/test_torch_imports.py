@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``collaborative_gan_sampling_torch``, not
-``chip_smoke.py`` and not the measurement tools (``conv_refine_phases.py``,
-``collab_walls.py``) imports JAX, Flax, Optax, the JAX package or
+``chip_smoke.py``, ``bench_torch.py`` or ``examples_torch/`` and not the
+measurement tools (``conv_refine_phases.py``, ``collab_walls.py``) imports
+JAX, Flax, Optax, the JAX package, ``bench.py``, ``benchmarks/`` or
 ``msgpack`` (absent where the port runs on the card: the port reads and
 writes Flax checkpoints with its own ``utils/msgpack.py``); its entry
 points refuse to run without a card unless the caller asks for the CPU; and
@@ -19,13 +20,16 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "collaborative_gan_sampling_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "collaborative_gan_sampling_tpu",
-             "msgpack")
+             "msgpack", "bench", "benchmarks")
+
+
+EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "conv_refine_phases.py",
-                                          REPO / "collab_walls.py"]
+    files = (sorted(PORT.rglob("*.py")) + EXAMPLES
+             + [REPO / "chip_smoke.py", REPO / "conv_refine_phases.py",
+                REPO / "collab_walls.py", REPO / "bench_torch.py"])
     assert len(files) > 10
     return files
 
@@ -99,6 +103,21 @@ def test_compat_mains_need_a_card_unless_told(monkeypatch, tmp_path, main):
         module.main(argv)
     if main == "main_synthetic":  # the others load image data first
         assert module.main(argv + ["--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("script", EXAMPLES, ids=lambda p: p.name)
+def test_examples_need_a_card_unless_told(monkeypatch, tmp_path, script):
+    """Each example script runs on the card unless given ``--device cpu``
+    (``tests/test_torch_examples.py`` runs them so); without a card it
+    raises before any work."""
+    import runpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", [str(script)])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runpy.run_path(str(script), run_name="__main__")
+    assert not (tmp_path / "runs").exists()
 
 
 def _run_smoke(cwd: Path, script: Path):
