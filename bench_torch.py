@@ -31,7 +31,8 @@ Divergences from ``bench.py``, on purpose:
 - No compile cache to enable: ``ops/_build.py`` builds the kernels into
   ``build/kernels/`` and reuses them.
 - ``device`` names the card and its power limit, as ``nvidia-smi
-  --query-gpu=name,power.limit --format=csv,noheader`` gives them.
+  --query-gpu=name,power.limit --format=csv,noheader`` gives them, in the
+  row of the card's own UUID (``utils/profiling.py::card_line``).
 - ``mfu_pct`` is null off the card (``--device cpu``): the peak is the
   card's.
 
@@ -44,7 +45,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -188,20 +188,9 @@ def _measure_preset(preset: str, batch: int | None, steps_k: int,
     }
 
 
-def _device_line(dev: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or the
-    device's name off the card."""
-    if dev.type != "cuda":
-        return str(dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    lines = smi.stdout.strip().splitlines()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return lines[min(index, len(lines) - 1)]
-
-
 def main(argv: list[str] | None = None) -> int:
+    from collaborative_gan_sampling_torch.utils.profiling import card_line
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=None,
                    help="override the per-preset batch "
@@ -234,7 +223,7 @@ def main(argv: list[str] | None = None) -> int:
             sec = sec.strip()
             if sec and sec != "none":
                 result[sec] = _measure_preset(sec, None, args.steps, dev)
-    result["device"] = _device_line(dev)
+    result["device"] = card_line(dev)
     print(json.dumps(result))
     return 0
 

@@ -6,7 +6,8 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
 1. device  - requires CUDA; prints the card's name and power limit as
-             ``nvidia-smi --query-gpu=name,power.limit`` gives them;
+             ``nvidia-smi --query-gpu=name,power.limit`` gives them, in the
+             row of the card's own UUID;
 2. build   - compiles every kernel of ``collaborative_gan_sampling_torch/
              csrc`` with nvcc (one process per source, all at once), prints
              ptxas's registers and spills, and fails if the f32 conv refine
@@ -354,10 +355,9 @@ def device_phase():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from collaborative_gan_sampling_torch.utils.profiling import card_line
+
+    card = card_line(torch.device("cuda", torch.cuda.current_device()))
     phase(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s)")
     return card
@@ -3554,8 +3554,8 @@ def timing(torch, dev):
 
 
 def main() -> None:
-    card = device_phase()
     sys.path.insert(0, REPO)
+    card = device_phase()
     import torch
 
     torch.backends.cudnn.allow_tf32 = False

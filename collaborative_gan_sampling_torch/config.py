@@ -12,6 +12,7 @@ MLP-D refine kernel (``ops/refine_mlp.py``).
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -149,6 +150,11 @@ class Config:
         ``Config.to_dict`` for the same config, so the checkpoint sidecar's
         content hash agrees across the two packages."""
         return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        """``to_dict`` as sorted, indented JSON: the same string as the JAX
+        package's ``Config.to_json`` for the same config."""
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":

@@ -92,6 +92,7 @@ def measure(source: Path, launch, phases: dict[int, str], out_dir: Path,
 
     import chip_smoke as cs
     from collaborative_gan_sampling_torch.ops import _build
+    from collaborative_gan_sampling_torch.utils.profiling import card_line
 
     libs = build(source, out_dir)
     results = {}
@@ -112,12 +113,9 @@ def measure(source: Path, launch, phases: dict[int, str], out_dir: Path,
     ms, xk, lk = results["plain"]
     same = bool(torch.equal(xk, results["counted"][1])
                 and torch.equal(lk, results["counted"][2]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
     print(f"== kernel from {source}: {ms:.4f} ms per call at {label} (CUDA "
           f"events; with the counters {results['counted'][0]:.4f} ms; same "
-          f"outputs: {same}) on {smi}")
+          f"outputs: {same}) on {card_line(xk.device)}")
     total = sum(int(sums[i]) for i, name in phases.items()
                 if not name.startswith("of which"))
     for i, name in phases.items():

@@ -1,11 +1,14 @@
 """``bench_torch.py``, the port's counterpart of ``bench.py``: the analytic
 FLOP count against ``bench.py``'s for every DCGAN preset, the measurement's
 result on the CPU at a tiny size, the mnist path through the bf16 conv
-kernel's wrapper once a round, and ``main``'s line with and without a card.
+kernel's wrapper once a round, ``main``'s line with and without a card, and
+the card named by its own UUID (``utils/profiling.py::card_line``, against a
+stub ``nvidia-smi``).
 The JAX side (``bench.py``) is imported here only; ``bench_torch.py``
 imports nothing of it."""
 
 import json
+import os
 
 import pytest
 import torch
@@ -13,6 +16,7 @@ import torch
 import bench
 import bench_torch
 from collaborative_gan_sampling_torch.config import get_preset, list_presets
+from collaborative_gan_sampling_torch.utils import profiling
 from collaborative_gan_sampling_tpu.config import get_preset as jax_preset
 
 DCGAN_PRESETS = [p for p in list_presets()
@@ -109,3 +113,41 @@ def test_secondary_failure_raises(monkeypatch):
     monkeypatch.setattr(bench_torch, "measure_refine_throughput", fake)
     with pytest.raises(RuntimeError, match="celeba broke"):
         bench_torch.main(["--device", "cpu", "--secondary", "celeba"])
+
+
+SMI_ROWS = ("GPU-11111111-2222-3333-4444-555555555555, NVIDIA H100 80GB HBM3, "
+            "700.00 W\n"
+            "GPU-66666666-7777-8888-9999-000000000000, NVIDIA H100 80GB HBM3, "
+            "500.00 W\n")
+
+
+@pytest.fixture
+def stub_smi(tmp_path, monkeypatch):
+    """An ``nvidia-smi`` on PATH that lists two cards, in PCI order, for the
+    uuid query only."""
+    smi = tmp_path / "nvidia-smi"
+    smi.write_text("#!/bin/sh\n"
+                   '[ "$1" = "--query-gpu=uuid,name,power.limit" ] || exit 9\n'
+                   f"printf '{SMI_ROWS}'\n")
+    smi.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+
+
+def test_card_line_takes_the_row_of_the_devices_uuid(stub_smi, monkeypatch):
+    """cuda:0 may be PCI's second card (CUDA_VISIBLE_DEVICES): the row is
+    the one of the device's UUID, not the one at torch's index."""
+    monkeypatch.setattr(profiling, "_card_uuid", lambda index:
+                        "GPU-66666666-7777-8888-9999-000000000000")
+    assert profiling.card_line(torch.device("cuda", 0)) == \
+        "NVIDIA H100 80GB HBM3, 500.00 W"
+
+
+def test_card_line_raises_without_a_matching_row(stub_smi, monkeypatch):
+    monkeypatch.setattr(profiling, "_card_uuid", lambda index:
+                        "GPU-deadbeef-0000-0000-0000-000000000000")
+    with pytest.raises(RuntimeError, match="GPU-deadbeef-0000"):
+        profiling.card_line(torch.device("cuda", 0))
+
+
+def test_card_line_off_the_card(stub_smi):
+    assert profiling.card_line(torch.device("cpu")) == "cpu"
