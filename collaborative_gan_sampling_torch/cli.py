@@ -15,7 +15,7 @@ Counterpart of ``collaborative_gan_sampling_tpu/cli.py``:
     cli collab    --config cifar10 --auto-tune   # tune, then sample
     cli benchmark --config toy2d          # all five methods, one table
     cli inspect   --config cifar10        # the latest checkpoint, no device
-    cli profile   --config mnist          # torch.profiler trace
+    cli profile   --config mnist          # torch.profiler trace, span summary
     cli import-tf1 --config celeba tf1=/path/to/tf1/ckpts [step=N]
     cli presets
 
@@ -83,6 +83,7 @@ from collaborative_gan_sampling_torch.parallel.multihost import (
     shutdown_distributed,
 )
 from collaborative_gan_sampling_torch.utils.debug import debug_nans
+from collaborative_gan_sampling_torch.utils.profiling import summary
 
 # The self-guarding sampling recipe of the JAX CLI's --safe: refinement
 # stops per sample at D's decision boundary, and shaping stops once D no
@@ -353,7 +354,7 @@ def _run(args, overrides: list[str]) -> int:
         return 0
 
     if args.command == "profile":
-        _emit({"trace_dir": exp.profile(state)})
+        _emit({"trace_dir": exp.profile(state), "spans": summary()})
         return 0
 
     if args.command == "teaser":

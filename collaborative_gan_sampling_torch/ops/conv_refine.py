@@ -49,6 +49,7 @@ from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
     refine_conv28_plain,
     refine_conv28_plain_bf16,
 )
+from collaborative_gan_sampling_torch.utils.profiling import span
 
 
 def _taps_in_range(n_in: int, n_out: int) -> int:
@@ -136,8 +137,9 @@ def _conv_refine28_cpu(x0, weights, steps, rate):
 
 def _conv_refine28_cuda(x0, weights, steps, rate):
     _check_x0(x0, "conv refine")
-    out = _launch("conv_refine28", x0, pack_f32_refine_weights(
-        FoldedConvD(*weights), x0.device), steps, rate)
+    with span("cgs.refine.prepare"):
+        packed = pack_f32_refine_weights(FoldedConvD(*weights), x0.device)
+    out = _launch("conv_refine28", x0, packed, steps, rate)
     fused_refine_conv28.launches += 1
     return out
 
@@ -283,8 +285,9 @@ def _conv_refine28_bf16_cpu(x0, weights, steps, rate):
 
 def _conv_refine28_bf16_cuda(x0, weights, steps, rate):
     _check_x0(x0, "bf16 conv refine")
-    out = _launch("conv_refine28_bf16", x0, pack_bf16_refine_weights(
-        FoldedConvD(*weights), x0.device), steps, rate)
+    with span("cgs.refine.prepare"):
+        packed = pack_bf16_refine_weights(FoldedConvD(*weights), x0.device)
+    out = _launch("conv_refine28_bf16", x0, packed, steps, rate)
     fused_refine_conv28_bf16.launches += 1
     return out
 

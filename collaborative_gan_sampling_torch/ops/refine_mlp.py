@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from collaborative_gan_sampling_torch.ops import _build
+from collaborative_gan_sampling_torch.utils.profiling import span
 
 # (weight (out, in), bias (out,)) per layer as the module holds them, the
 # head (1, h) last: the kernel's form.
@@ -266,11 +267,12 @@ def _refine_mlp_cuda(x0, weights, biases, steps, rate):
         raise ValueError("MLP refine kernel takes (B, d) float32, got "
                          f"{tuple(x0.shape)} {x0.dtype}")
     layers = list(zip(weights, biases))
-    hidden, relu = check_layers(layers, x0)
     x0 = x0.contiguous()
-    plan = launch_plan(x0.shape[0], x0.shape[1], hidden, relu,
-                       _sms(x0.device.index if x0.device.index is not None
-                            else torch.cuda.current_device()))
+    with span("cgs.refine.prepare"):
+        hidden, relu = check_layers(layers, x0)
+        plan = launch_plan(x0.shape[0], x0.shape[1], hidden, relu,
+                           _sms(x0.device.index if x0.device.index is not None
+                                else torch.cuda.current_device()))
     out = _launch(layers, x0, steps, rate, plan)
     fused_refine_mlp.launches += 1
     return out

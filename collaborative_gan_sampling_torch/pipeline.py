@@ -890,16 +890,17 @@ class Experiment:
     def profile(self, state: TrainState | None = None,
                 chunks: int = 3) -> str:
         """A ``torch.profiler`` trace (``utils/profiling.py::trace``) of
-        ``chunks`` train chunks, each under ``record_function("train_chunk")``,
-        and one ``sample(method="refinement")`` under
-        ``record_function("refinement")``, after one warm chunk outside it.
+        ``chunks`` train chunks, each under span ``train_chunk``, and one
+        ``sample(method="refinement")`` under span ``refinement``, after one
+        warm chunk outside it. The span store is emptied first, so that
+        ``utils/profiling.py::summary()`` reads the trace's spans after it.
         Trains ``state`` further. Returns the trace's directory,
         ``<workdir>/trace``; data-parallel, every rank runs the same work
         and rank 0 records it."""
-        from torch.profiler import record_function
-
         from collaborative_gan_sampling_torch.utils.profiling import (
             block,
+            reset,
+            span,
             trace,
         )
 
@@ -909,12 +910,13 @@ class Experiment:
         state, m = chunk(state)  # first-call set-up outside the trace
         block(m)
         logdir = os.path.join(self.workdir, "trace")
+        reset()
         with trace(self._path("trace")):
             for _ in range(chunks):
-                with record_function("train_chunk"):
+                with span("train_chunk"):
                     state, m = chunk(state)
                     block(m)
-            with record_function("refinement"):
+            with span("refinement"):
                 block(self.sample(state, method="refinement").samples)
         return logdir
 

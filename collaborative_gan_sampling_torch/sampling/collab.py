@@ -11,12 +11,16 @@ with real data when ``data_fn`` is given (else with G samples). A chain that
 never accepted still holds its real initializer and is marked rejected, so
 no training image leaks into the output.
 
-collab, per round i:
-  1. x, logits = K-step refined G(z) under the current (shaped) D;
+collab, per round i (the spans of ``utils/profiling.py``, recorded under a
+profiler, in brackets: the call is ``cgs.collab.call``, the burn-in M
+``cgs.collab.burn_in``):
+  1. x, logits = K-step refined G(z) under the current (shaped) D
+     (``cgs.refine.draw``, ``.prepare`` and ``.steps``);
   2. with shaping on, M <- 0.7 M + 0.3 max(logits), and the accept test uses
      max(M, max(logits)); with shaping off the burn-in M stays;
-  3. DRS accept mask;
-  4. if i % shape_every == 0: ``shaping_steps`` D updates on (real, x).
+  3. DRS accept mask (2 and 3: ``cgs.collab.accept``);
+  4. if i % shape_every == 0: ``shaping_steps`` D updates on (real, x)
+     (``cgs.collab.shape``).
 
 Conditional models draw a label per sample beside z, and every result keeps
 them (``SampleResult.labels``). With ``per_class_drs`` the burn-in M is one
@@ -64,6 +68,7 @@ from collaborative_gan_sampling_torch.sampling.rejection import (
     fold_per_class,
 )
 from collaborative_gan_sampling_torch.training.shaping import ShapingStep
+from collaborative_gan_sampling_torch.utils.profiling import span
 
 METHODS = ("standard", "reject", "mhgan", "refinement", "collab")
 
@@ -102,8 +107,9 @@ def sample(bundle: GANBundle, g, d, cfg: RefineConfig,
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {METHODS}")
     if method == "collab":
-        return _sample_collab(bundle, g, d, cfg, generator, data_fn,
-                              cond_data_fn, group)
+        with span("cgs.collab.call"):
+            return _sample_collab(bundle, g, d, cfg, generator, data_fn,
+                                  cond_data_fn, group)
     if method == "mhgan":
         return _sample_mhgan(bundle, g, d, cfg, generator, data_fn, group)
     fn = {"standard": _sample_standard, "reject": _sample_reject,
@@ -253,43 +259,47 @@ def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn,
         x, labels, _ = draw_refine(g, state.d, gen, n)
         return x, labels
 
-    if per_class:
-        m = estimate_logit_max_per_class(bundle, state.d, burn_sample,
-                                         generator, cfg.burn_in,
-                                         cfg.batch_size)
-    else:
-        m = estimate_logit_max(bundle, state.d, burn_sample, generator,
-                               cfg.burn_in, cfg.batch_size)
+    with span("cgs.collab.burn_in"):
+        if per_class:
+            m = estimate_logit_max_per_class(bundle, state.d, burn_sample,
+                                             generator, cfg.burn_in,
+                                             cfg.batch_size)
+        else:
+            m = estimate_logit_max(bundle, state.d, burn_sample, generator,
+                                   cfg.burn_in, cfg.batch_size)
     xs, logits, labels, accepted, shape_losses = [], [], [], [], []
     zero = torch.zeros((), device=bundle.device)
     for i in range(cfg.num_batches):
         x, lab, lg = draw_refine(g, state.d, generator, cfg.batch_size)
-        # D's logit scale drifts while it is shaped: recalibrate M.
-        m_eff = m
-        if shaping_on and per_class:  # absent classes keep their M
-            rm = class_max(lg, lab, bundle.num_classes)
-            seen = torch.isfinite(rm)
-            m = torch.where(seen, 0.7 * m + 0.3 * rm, m)
-            m_eff = torch.where(seen, torch.maximum(m, rm), m)
-        elif shaping_on:
-            m = 0.7 * m + 0.3 * lg.max()
-            m_eff = torch.maximum(m, lg.max())
-        eff, eff_m = (fold_per_class(lg, m_eff, lab) if per_class
-                      else (lg, m_eff))
-        accepted.append(drs_accept_mask(generator, eff, eff_m, cfg.gamma,
-                                        cfg.eps_drs, cfg.gamma_percentile,
-                                        use_pallas=cfg.use_pallas))
+        with span("cgs.collab.accept"):
+            # D's logit scale drifts while it is shaped: recalibrate M.
+            m_eff = m
+            if shaping_on and per_class:  # absent classes keep their M
+                rm = class_max(lg, lab, bundle.num_classes)
+                seen = torch.isfinite(rm)
+                m = torch.where(seen, 0.7 * m + 0.3 * rm, m)
+                m_eff = torch.where(seen, torch.maximum(m, rm), m)
+            elif shaping_on:
+                m = 0.7 * m + 0.3 * lg.max()
+                m_eff = torch.maximum(m, lg.max())
+            eff, eff_m = (fold_per_class(lg, m_eff, lab) if per_class
+                          else (lg, m_eff))
+            accepted.append(drs_accept_mask(
+                generator, eff, eff_m, cfg.gamma, cfg.eps_drs,
+                cfg.gamma_percentile, use_pallas=cfg.use_pallas))
         loss = zero
         if shaping_on and i % cfg.shape_every == 0:
-            for _ in range(cfg.shaping_steps):
-                if balanced:
-                    x_real, labels_r = cond_data_fn(generator, lab)
-                else:
-                    x_real, labels_r = data_fn(generator, cfg.batch_size)
-                state, loss = shape_step(
-                    state, *(shard_batch(group, t)
-                             for t in (x_real, x, labels_r, lab)),
-                    anchor_params)
+            with span("cgs.collab.shape"):
+                for _ in range(cfg.shaping_steps):
+                    if balanced:
+                        x_real, labels_r = cond_data_fn(generator, lab)
+                    else:
+                        x_real, labels_r = data_fn(generator,
+                                                   cfg.batch_size)
+                    state, loss = shape_step(
+                        state, *(shard_batch(group, t)
+                                 for t in (x_real, x, labels_r, lab)),
+                        anchor_params)
         shape_losses.append(loss)
         xs.append(x)
         logits.append(lg)

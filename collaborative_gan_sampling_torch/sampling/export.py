@@ -96,6 +96,8 @@ def export_sampler(sampler, g: torch.nn.Module, d: torch.nn.Module,
     artifact is one process's program."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
+    from collaborative_gan_sampling_torch.utils.profiling import suspended
+
     if sampler.group is not None:
         raise ValueError(
             "export_sampler serialises one process's program; build the "
@@ -110,8 +112,11 @@ def export_sampler(sampler, g: torch.nn.Module, d: torch.nn.Module,
         return sampler.round_seeded(g, d, m, seed)
 
     seed = torch.zeros(1, dtype=torch.int64, device=device)
-    traced = _views_as_reshapes(
-        make_fx(serve_round, tracing_mode="real")(seed))
+    # Under a recording profiler a span's record_function would be traced
+    # as profiler nodes of the program.
+    with suspended():
+        traced = _views_as_reshapes(
+            make_fx(serve_round, tracing_mode="real")(seed))
     exported = torch.export.export(_Program(traced), (seed,))
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:

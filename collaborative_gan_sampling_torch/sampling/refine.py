@@ -29,6 +29,12 @@ each step is one autograd graph through G and D, both in eval mode.
 the caller gives them) first; ``refine_samples`` is
 the one-shot call of ``make_refine_fn``.
 
+Under a profiler (``utils/profiling.py``) each batch records its spans:
+``cgs.refine.draw`` (z, labels, G's forward), ``cgs.refine.prepare`` (what
+a launch needs of D alone: the BN fold, the kernels' weight packing) and
+``cgs.refine.steps`` (the K steps: the kernel's launch or the autograd
+loop).
+
 Data parallelism (``group``; JAX ``refine.py:173-236`` constrains z to the
 mesh's data axis): z is drawn whole, each rank refines its slice (through
 the kernels where their gates hold) and the refined batch and its logits
@@ -61,6 +67,7 @@ from collaborative_gan_sampling_torch.parallel.mesh import (
     shard_batch,
     world_size,
 )
+from collaborative_gan_sampling_torch.utils.profiling import span
 
 OBJECTIVES = ("ns", "kl", "saturating")
 
@@ -155,19 +162,25 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
         if supports_conv_refine_kernel(bundle, cfg, labels,
                                        return_trajectory):
             fused = fused_refine_conv28_bf16 if bf16 else fused_refine_conv28
-            x_k, logits = fused(fold_dcgan_d(d), x0, cfg.steps, rate)
+            with span("cgs.refine.prepare"):
+                folded = fold_dcgan_d(d)
+            with span("cgs.refine.steps"):
+                x_k, logits = fused(folded, x0, cfg.steps, rate)
             return x_k, {"logits": logits}
         if supports_mlp_refine_kernel(bundle, cfg, labels,
                                       return_trajectory):
-            x_k, logits = fused_refine_mlp(mlp_layers(d), x0, cfg.steps,
-                                           rate)
+            with span("cgs.refine.prepare"):
+                layers = mlp_layers(d)
+            with span("cgs.refine.steps"):
+                x_k, logits = fused_refine_mlp(layers, x0, cfg.steps, rate)
             return x_k, {"logits": logits}
         traj = [x0.detach()] if return_trajectory else None
-        x = _descend(_loss_grad(lambda x: bundle.discriminate(
-            d, x, labels, train=False), cfg.objective), x0, cfg, generator,
-            rate, traj)
-        with torch.no_grad():
-            logits = bundle.discriminate(d, x, labels, train=False)
+        with span("cgs.refine.steps"):
+            x = _descend(_loss_grad(lambda x: bundle.discriminate(
+                d, x, labels, train=False), cfg.objective), x0, cfg,
+                generator, rate, traj)
+            with torch.no_grad():
+                logits = bundle.discriminate(d, x, labels, train=False)
         aux = {"logits": logits}
         if return_trajectory:
             aux["traj"] = torch.stack(traj)
@@ -214,12 +227,13 @@ def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig,
                 x = bundle.generate(g, z, labels, train=False)
                 return bundle.discriminate(d, x, labels, train=False)
 
-            z = _descend(_loss_grad(forward, cfg.objective), z, cfg,
-                         generator, rate)
-            with torch.no_grad():
-                x = bundle.generate(g, z, labels, train=False)
-                return x, bundle.discriminate(d, x, labels, train=False)
-        with torch.no_grad():
+            with span("cgs.refine.steps"):
+                z = _descend(_loss_grad(forward, cfg.objective), z, cfg,
+                             generator, rate)
+                with torch.no_grad():
+                    x = bundle.generate(g, z, labels, train=False)
+                    return x, bundle.discriminate(d, x, labels, train=False)
+        with span("cgs.refine.draw"), torch.no_grad():
             x0 = bundle.generate(g, z, labels, train=False)
         x, aux = refine(d, x0, labels, generator=generator, rate=rate)
         return x, aux["logits"]
@@ -237,9 +251,10 @@ def make_draw_refine_fn(bundle: GANBundle, cfg: RefineConfig,
 
     def draw_refine(g, d, generator: torch.Generator | None, n: int,
                     labels: torch.Tensor | None = None, rate=None):
-        z = bundle.sample_z(generator, n)
-        if labels is None:
-            labels = bundle.sample_labels(generator, n)
+        with span("cgs.refine.draw"):
+            z = bundle.sample_z(generator, n)
+            if labels is None:
+                labels = bundle.sample_labels(generator, n)
         x, logits = refine_z(g, d, z, labels, generator, rate)
         return x, labels, logits
 

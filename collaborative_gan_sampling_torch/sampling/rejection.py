@@ -25,6 +25,7 @@ from collaborative_gan_sampling_torch.ops.accept import (
     gamma_total,
     philox_bits_plain,
 )
+from collaborative_gan_sampling_torch.utils.profiling import span
 
 
 def drs_acceptance_prob(logits: torch.Tensor, logit_max, gamma: float = 0.0,
@@ -72,13 +73,14 @@ def estimate_logit_max(bundle, d, sample_fn: Callable,
                        generator: torch.Generator | None, burn_in: int,
                        batch_size: int) -> torch.Tensor:
     """Burn-in estimate of M = max_x F(x) over ``burn_in // batch_size``
-    (at least one) batches of ``sample_fn(generator, n) -> (x, labels)``."""
+    (at least one) batches of ``sample_fn(generator, n) -> (x, labels)``;
+    each batch's D forward and max is span ``cgs.drs.score``."""
     m = torch.tensor(float("-inf"), device=bundle.device)
     for _ in range(max(1, burn_in // batch_size)):
         x, labels = sample_fn(generator, batch_size)
-        with torch.no_grad():
+        with span("cgs.drs.score"), torch.no_grad():
             logits = bundle.discriminate(d, x, labels, train=False)
-        m = torch.maximum(m, logits.max())
+            m = torch.maximum(m, logits.max())
     return m
 
 
@@ -92,9 +94,9 @@ def estimate_logit_max_per_class(bundle, d, sample_fn: Callable,
     m = torch.full((num_classes,), float("-inf"), device=bundle.device)
     for _ in range(max(1, burn_in // batch_size)):
         x, labels = sample_fn(generator, batch_size)
-        with torch.no_grad():
+        with span("cgs.drs.score"), torch.no_grad():
             logits = bundle.discriminate(d, x, labels, train=False)
-        m = torch.maximum(m, class_max(logits, labels, num_classes))
+            m = torch.maximum(m, class_max(logits, labels, num_classes))
     return torch.where(torch.isfinite(m), m, m.max())
 
 

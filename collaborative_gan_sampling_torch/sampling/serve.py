@@ -63,6 +63,7 @@ from collaborative_gan_sampling_torch.utils.prng import (
     philox_normal,
     philox_randint,
 )
+from collaborative_gan_sampling_torch.utils.profiling import count, span
 
 SERVING_METHODS = ("standard", "refinement", "reject", "collab")
 
@@ -118,8 +119,9 @@ class ServingSampler:
     def _draw_score(self, g, d, generator, n: int):
         """One candidate batch drawn from ``generator`` (labels, then z),
         its labels and its final logits."""
-        labels = self._labels_for(generator, n)
-        z = self.bundle.sample_z(generator, n)
+        with span("cgs.refine.draw"):
+            labels = self._labels_for(generator, n)
+            z = self.bundle.sample_z(generator, n)
         x, logits = self._score(g, d, z, labels, generator)
         return x, labels, logits
 
@@ -130,11 +132,12 @@ class ServingSampler:
             return torch.ones(logits.shape, dtype=torch.bool,
                               device=logits.device)
         cfg = self.cfg
-        eff, eff_m = (fold_per_class(logits, m, labels) if self._per_class
-                      else (logits, m))
-        return drs_accept_mask(generator, eff, eff_m, cfg.gamma, cfg.eps_drs,
-                               cfg.gamma_percentile,
-                               use_pallas=cfg.use_pallas, seed=seed)
+        with span("cgs.serve.accept"):
+            eff, eff_m = (fold_per_class(logits, m, labels)
+                          if self._per_class else (logits, m))
+            return drs_accept_mask(generator, eff, eff_m, cfg.gamma,
+                                   cfg.eps_drs, cfg.gamma_percentile,
+                                   use_pallas=cfg.use_pallas, seed=seed)
 
     def calibrate(self, g, d, generator: torch.Generator | None
                   ) -> torch.Tensor:
@@ -147,25 +150,25 @@ class ServingSampler:
             x, labels, _ = self._draw_score(g, d, gen, n)
             return x, labels
 
-        if self._per_class:
-            return estimate_logit_max_per_class(
-                self.bundle, d, burn, generator, self.cfg.burn_in,
-                self.cfg.batch_size)
-        return estimate_logit_max(self.bundle, d, burn, generator,
-                                  self.cfg.burn_in, self.cfg.batch_size)
+        estimate = (estimate_logit_max_per_class if self._per_class
+                    else estimate_logit_max)
+        with span("cgs.serve.calibrate"):
+            return estimate(self.bundle, d, burn, generator,
+                            self.cfg.burn_in, self.cfg.batch_size)
 
     def round(self, g, d, m: torch.Tensor,
               generator: torch.Generator | None):
         """One serving round: (samples, labels or None, accept, logits)
         with ``num_batches * batch_size`` candidates, all on the device."""
         parts = []
-        for _ in range(self.cfg.num_batches):
-            x, labels, logits = self._draw_score(g, d, generator,
-                                                 self.cfg.batch_size)
-            parts.append((x, labels,
-                          self._accept(logits, labels, m, generator),
-                          logits))
-        return self._concat(parts)
+        with span("cgs.serve.round"):
+            for _ in range(self.cfg.num_batches):
+                x, labels, logits = self._draw_score(g, d, generator,
+                                                     self.cfg.batch_size)
+                parts.append((x, labels,
+                              self._accept(logits, labels, m, generator),
+                              logits))
+            return self._concat(parts)
 
     def _round_from(self, g, d, m: torch.Tensor, z: torch.Tensor,
                     labels: torch.Tensor | None, accept_seeds: torch.Tensor,
@@ -224,13 +227,23 @@ class ServingSampler:
         """The first ``cap`` accepted rows and their labels, gathered on the
         device (uint8 by ``denormalize_images`` when ``quantize``) and then
         fetched to the host, so the transfer is O(accepted), not
-        O(candidates). Returns (rows, labels or None, count)."""
-        idx = torch.nonzero(acc)[:cap, 0]
-        x_sel = x[idx]
-        if quantize:
-            x_sel = denormalize_images(x_sel)
-        lab = labels[idx].cpu() if labels is not None else None
-        return x_sel.cpu(), lab, int(idx.shape[0])
+        O(candidates). Returns (rows, labels or None, count). Spans
+        ``cgs.serve.compact`` (the gather) and ``cgs.serve.fetch`` (the
+        copies); each of ``nonzero`` and the copies reads the device."""
+        with span("cgs.serve.compact"):
+            idx = torch.nonzero(acc)[:cap, 0]
+            count("host_syncs")
+            x_sel = x[idx]
+            if quantize:
+                x_sel = denormalize_images(x_sel)
+            lab = labels[idx] if labels is not None else None
+        with span("cgs.serve.fetch"):
+            if lab is not None:
+                lab = lab.cpu()
+                count("host_syncs")
+            rows = x_sel.cpu()
+            count("host_syncs")
+        return rows, lab, int(idx.shape[0])
 
     def generate(self, g, d, generator: torch.Generator | None, n: int,
                  max_rounds: int = 1000, quantize_images: bool = True):
@@ -241,54 +254,65 @@ class ServingSampler:
         back uint8 in [0, 255] by default (quantized on the device, before
         the fetch); 2D samples stay float32. The first round, which also
         builds the kernels and sizes the compaction buffer, keeps its
-        samples but is left out of the reported rate."""
-        quantize = quantize_images and len(self.bundle.data_shape) == 3
-        m = self.calibrate(g, d, generator)
-        per_round = self.cfg.num_batches * self.cfg.batch_size
-        x0, lab0, acc0, _ = self.round(g, d, m, generator)
-        rate0 = float(acc0.float().mean())
-        # 30% headroom; a round that overflows contributes `cap` samples
-        # (the first k of an iid accepted set are still unbiased).
-        cap = min(per_round, max(64, int(per_round * (1.3 * rate0 + 0.05))))
+        samples but is left out of the reported rate. The request is span
+        ``cgs.serve.generate``; its reads of the device (the first round's
+        rate, each round's accepted count, ``compact``'s) count as
+        ``host_syncs``."""
+        with span("cgs.serve.generate"):
+            quantize = quantize_images and len(self.bundle.data_shape) == 3
+            m = self.calibrate(g, d, generator)
+            per_round = self.cfg.num_batches * self.cfg.batch_size
+            x0, lab0, acc0, _ = self.round(g, d, m, generator)
+            rate0 = float(acc0.float().mean())
+            count("host_syncs")
+            # 30% headroom; a round that overflows contributes `cap`
+            # samples (the first k of an iid accepted set are still
+            # unbiased).
+            cap = min(per_round,
+                      max(64, int(per_round * (1.3 * rate0 + 0.05))))
 
-        xs, labs, total, rounds, overflow = [], [], 0, 0, 0
+            xs, labs, total, rounds, overflow = [], [], 0, 0, 0
 
-        def take(x, labels, acc):
-            nonlocal total, rounds, overflow
-            x_sel, lab_sel, k = self.compact(x, labels, acc, cap, quantize)
-            overflow += int(acc.sum()) - k
-            xs.append(x_sel)
-            labs.append(lab_sel)
-            total += k
-            rounds += 1
-            return k
+            def take(x, labels, acc):
+                nonlocal total, rounds, overflow
+                x_sel, lab_sel, k = self.compact(x, labels, acc, cap,
+                                                 quantize)
+                overflow += int(acc.sum()) - k
+                count("host_syncs")
+                xs.append(x_sel)
+                labs.append(lab_sel)
+                total += k
+                rounds += 1
+                return k
 
-        warm = take(x0, lab0, acc0)
-        timed = 0
-        t0 = time.perf_counter()
-        while total < n:
-            if rounds >= max_rounds:
-                raise RuntimeError(
-                    f"generate: {total}/{n} accepted after {rounds} rounds "
-                    f"(accept rate too low - relax gamma/gamma_percentile)")
-            x, labels, acc, _ = self.round(g, d, m, generator)
-            timed += take(x, labels, acc)
-        dt = time.perf_counter() - t0
+            warm = take(x0, lab0, acc0)
+            timed = 0
+            t0 = time.perf_counter()
+            while total < n:
+                if rounds >= max_rounds:
+                    raise RuntimeError(
+                        f"generate: {total}/{n} accepted after {rounds} "
+                        "rounds (accept rate too low - relax "
+                        "gamma/gamma_percentile)")
+                x, labels, acc, _ = self.round(g, d, m, generator)
+                timed += take(x, labels, acc)
+            dt = time.perf_counter() - t0
 
-        samples = torch.cat(xs)[:n]
-        labels = torch.cat(labs)[:n] if self.bundle.conditional else None
-        stats = {
-            "n": int(n),
-            "rounds": rounds,
-            "candidates": rounds * per_round,
-            "accept_rate": (total + overflow) / (rounds * per_round),
-            "overflow_dropped": overflow,
-            "seconds": dt,
-            # Accepted samples per second over the rounds after the first;
-            # None when the first round alone satisfied n.
-            "samples_per_sec": timed / dt if timed else None,
-            "warmup_samples": warm,
-            "dtype": "uint8" if quantize else "float32",
-            "method": self.method,
-        }
-        return samples, labels, stats
+            samples = torch.cat(xs)[:n]
+            labels = (torch.cat(labs)[:n] if self.bundle.conditional
+                      else None)
+            stats = {
+                "n": int(n),
+                "rounds": rounds,
+                "candidates": rounds * per_round,
+                "accept_rate": (total + overflow) / (rounds * per_round),
+                "overflow_dropped": overflow,
+                "seconds": dt,
+                # Accepted samples per second over the rounds after the
+                # first; None when the first round alone satisfied n.
+                "samples_per_sec": timed / dt if timed else None,
+                "warmup_samples": warm,
+                "dtype": "uint8" if quantize else "float32",
+                "method": self.method,
+            }
+            return samples, labels, stats

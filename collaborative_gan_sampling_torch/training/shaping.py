@@ -32,6 +32,7 @@ from collaborative_gan_sampling_torch.training.gan import (
     nonsaturating_d_loss,
     real_pass,
 )
+from collaborative_gan_sampling_torch.utils.profiling import count
 
 
 @dataclass
@@ -58,7 +59,8 @@ class ShapingStep:
     * ``decay`` != 1: update n (counted before it) runs at lr * decay**n.
     * ``target`` > 0: the update is skipped, leaving params, Adam state and
       BN statistics as they were, unless D's mean real-vs-refined logit
-      separation is above ``target``.
+      separation is above ``target`` (a read of the device: one of
+      ``utils/profiling.py``'s ``host_syncs``).
     * ``anchor`` > 0: adds 0.5 * anchor * ||p - p_anchor||^2 (L2-SP) over
       all D params.
     * ``r1_gamma`` > 0: adds 0.5 * r1_gamma * E||grad_x D(x_real)||^2.
@@ -127,6 +129,7 @@ class ShapingStep:
         if self.target > 0:
             sep = all_reduce_mean(group, (lr_real.mean()
                                           - lr_fake.mean()).detach())
+            count("host_syncs")
             if not bool(sep > self.target):
                 with torch.no_grad():
                     for b, saved in zip(d.buffers(), stats):

@@ -11,7 +11,8 @@ and profiler trace against the JAX package's.
   metrics within 1e-6.
 * ``cli inspect`` on a checkpoint the JAX package wrote returns the JAX
   CLI's dict, with no device asked for.
-* ``Experiment.profile`` writes a Chrome trace holding both annotations.
+* ``Experiment.profile`` writes a Chrome trace holding both annotations,
+  and ``cli profile`` prints the summary of the spans in it.
 """
 
 import dataclasses
@@ -189,3 +190,23 @@ def test_profile_trace_holds_both_annotations(tmp_path):
         names = [e.get("name") for e in json.load(fh)["traceEvents"]]
     assert names.count("train_chunk") == 2
     assert names.count("refinement") == 1
+
+
+def test_cli_profile_prints_the_span_summary(tmp_path, capsys):
+    cfg = _tiny(tmp_path, "run")
+    assert t_cli.main(["profile", "--config", "toy2d", "--device", "cpu",
+                       "--workdir", cfg.workdir, *TINY]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["trace_dir"] == os.path.join(cfg.workdir, "trace")
+    spans = out["spans"]["spans"]
+    # The two annotations (3 train chunks) and the traced refinement's own
+    # spans, a batch each: z, G; the MLP kernel's D layers; its launch.
+    assert spans["train_chunk"]["count"] == 3
+    assert spans["refinement"]["count"] == 1
+    batches = 2  # refine.num_batches
+    assert {k: v["count"] for k, v in spans.items()
+            if k.startswith("cgs.")} == {"cgs.refine.draw": 2 * batches,
+                                         "cgs.refine.prepare": batches,
+                                         "cgs.refine.steps": batches}
+    assert set(spans["refinement"]) == {"count", "total_ms", "self_ms"}
+    assert out["spans"]["counters"] == {}
