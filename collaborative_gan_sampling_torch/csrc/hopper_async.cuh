@@ -169,6 +169,16 @@ struct Ring {
     return tiles + s * TILE_BYTES;
   }
 
+  // Waits for tile `it` and moves on without releasing it; returns the
+  // shared address of its stage. A consumer that keeps tiles in use across
+  // later waits takes them with one Ring and releases them, in the same
+  // order, with another.
+  __device__ __forceinline__ uint32_t take(bool rec, int slot) {
+    const uint32_t stage = wait(rec, slot);
+    ++it;
+    return stage;
+  }
+
   // Once every lane of this warp is done reading tile `it`.
   __device__ __forceinline__ void release() {
     __syncwarp();

@@ -16,12 +16,23 @@ of the refinement, emulated in plain PyTorch on the CPU.
   (measured here: at most 1.2e-7). The f32 plain version lies beyond five
   times that bound on x (K >= 1) and ten times on logits, so the bound
   tells the precisions apart.
+* conv1's A operands, h1 and dz2 in planes of the no-swizzle K-major
+  layout, are read back through an independent decoding of the ``wgmma``
+  descriptor (start address, LBO, SBO) that the kernel builds for each tap:
+  every forward tap and every (class, tap) pair of the VJP reads exactly the
+  cells that ``_conv1_rows`` and ``_vjp_rows`` name on the 49 real rows, and
+  zeros on the border. The kernel's constants and its offset functions
+  (``h1_cell``, ``fwd_run``, ``vjp_run``, ``real_row``, ``border_cell``,
+  ``plane_desc``) are read from its source and evaluated here.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from collaborative_gan_sampling_torch.ops import _build
 from collaborative_gan_sampling_torch.ops.conv_refine import (
     TILE_ELEMS,
     VJP_CLASSES,
@@ -228,3 +239,193 @@ def test_emulated_decomposition_matches_plain(params, steps):
     if steps:
         assert float((x32 - x_want).abs().max()) > 5 * TOL
         assert float((x_want - x0).abs().max()) > 100 * TOL
+
+
+# ---- the planes that conv1's wgmma A operands read ------------------------
+
+KERNEL = _build.CSRC / "conv_refine28_bf16.cu"
+
+
+def _python(expr: str) -> str:
+    """An integer expression of the kernel as Python: casts dropped, / as
+    // (the layout divides only non-negative or even numbers, where C's
+    truncation is the floor), && and ||, and a chain of ?: conditionals."""
+    expr = " ".join(expr.split())
+    expr = re.sub(r"static_cast<\w+>", "", expr)
+    expr = expr.replace("&&", " and ").replace("||", " or ")
+    expr = re.sub(r"(?<!/)/(?!/)", "//", expr)
+    if "?" in expr:
+        parts = re.split(r"[?:]", expr)
+        out = parts[-1]
+        for cond, val in reversed(list(zip(parts[0:-1:2], parts[1:-1:2]))):
+            out = f"(({val}) if ({cond}) else ({out}))"
+        expr = out
+    return expr
+
+
+def kernel_constants() -> dict[str, int]:
+    """Every ``constexpr int`` of the kernel's source, evaluated in order."""
+    env: dict[str, int] = {}
+    for decl in re.findall(r"constexpr int ([^;]+);", KERNEL.read_text()):
+        for name, expr in re.findall(r"(\w+) = ([^,]+)(?:,|$)", decl):
+            env[name] = eval(_python(expr), {}, dict(env))
+    return env
+
+
+def kernel_fn(name: str):
+    """The kernel's one-line device function ``name`` as a Python function
+    over its constants and its other one-line functions."""
+    env: dict = dict(kernel_constants())
+    for fn, params, body in re.findall(
+            r"(?:int|bool|uint64_t) (\w+)\(([^)]*)\) \{\s*return (.*?);\s*\}",
+            KERNEL.read_text(), re.S):
+        args = ", ".join(a.split()[-1] for a in params.split(","))
+        env[fn] = eval(f"lambda {args}: {_python(body)}", env)
+    return env[name]
+
+
+def desc_operand(mem: torch.Tensor, desc: int) -> torch.Tensor:
+    """A (64 x 16 bf16) as wgmma reads it through a no-swizzle K-major
+    shared-memory descriptor: start address in bits 0-13, LBO in bits 16-29
+    and SBO in bits 32-45 (16-byte units), layout (bits 62-63) 0. Core
+    matrices of 8 rows x 16 bytes; row r of the one for rows 8i .. 8i + 7
+    and channels 8j .. 8j + 7 at start + i SBO + j LBO + 16 (r % 8). ``mem``
+    holds one value per 2 bytes; an index past its end raises."""
+    assert desc >> 62 == 0 and (desc >> 49) & 7 == 0
+    start = (desc & 0x3FFF) << 4
+    lbo, sbo = ((desc >> 16) & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    r = torch.arange(64).view(64, 1)
+    k = torch.arange(16).view(1, 16)
+    byte = start + (r // 8) * sbo + (k // 8) * lbo + (r % 8) * 16 + (k % 8) * 2
+    if int(byte.max()) >= 2 * mem.numel():
+        raise IndexError("the operand reads past the buffer")
+    return mem[byte // 2]
+
+
+def _out_rows():
+    """Output rows m = oy * 8 + ox of the 49 cells (oy, ox), in cell
+    order."""
+    cell = torch.arange(49)
+    return (cell // 7) * 8 + cell % 7
+
+
+def _tagged(rows: torch.Tensor, channels: int) -> torch.Tensor:
+    """(49, channels) tags of the cells ``rows`` names: 1 + row * channels
+    + channel, 0 where the row is -1 (the border)."""
+    c = torch.arange(channels).view(1, -1)
+    return torch.where(rows.view(-1, 1) >= 0, 1 + rows.view(-1, 1) * channels
+                       + c, 0)
+
+
+@pytest.fixture(scope="module")
+def planes():
+    """The kernel's constants and functions, and h1 and dz2 as its writers
+    leave them: conv0's epilogue writes h1 cell (iy, ix) channel c at
+    element 8 h1_cell(iy, ix) + 8 (c / 8) H1_CHUNK + c % 8 of a zeroed h1
+    area; the head writes dz2 row m = oy * 8 + ox at 8 (LEAD + m + (co / 8)
+    DZ2_CHUNK) + co % 8 where real_row(m), and the border loop zeroes
+    border_cell(i % BORDER) of chunk i / BORDER, over a scratch area that
+    holds junk (-7) from the VJP partials before."""
+    k = kernel_constants()
+    h1_cell, real_row = kernel_fn("h1_cell"), kernel_fn("real_row")
+    border_cell = kernel_fn("border_cell")
+    h1 = torch.zeros(8 * k["H1_CELLS"], dtype=torch.long)
+    for cell in range(196):
+        iy, ix = divmod(cell, 14)
+        for c in range(64):
+            h1[8 * h1_cell(iy, ix) + 8 * (c // 8) * k["H1_CHUNK"] + c % 8] = (
+                1 + cell * 64 + c)
+    dz2 = torch.full((k["SCR_BYTES"] // 2,), -7, dtype=torch.long)
+    for i in range(16 * k["BORDER"]):
+        cell = border_cell(i % k["BORDER"]) + i // k["BORDER"] * k["DZ2_CHUNK"]
+        dz2[8 * cell:8 * cell + 8] = 0
+    for m in range(64):
+        if not real_row(m):
+            continue
+        for co in range(128):
+            dz2[8 * (k["LEAD"] + m + (co // 8) * k["DZ2_CHUNK"]) + co % 8] = (
+                1 + ((m // 8) * 7 + m % 8) * 128 + co)
+    return k, h1, dz2
+
+
+def test_plane_constants(planes):
+    """The planes as the kernel's note states them, and its layout fits
+    shared memory."""
+    k = planes[0]
+    assert (k["PITCH"], k["LEAD"], k["PLANE"], k["REGION"]) == (8, 9, 73, 76)
+    assert k["H1_CHUNK"] == 4 * k["REGION"] and k["DZ2_CHUNK"] == k["REGION"]
+    assert k["BORDER"] == k["PLANE"] - 49 == 24
+    assert k["SMEM_BYTES"] == 214248 and k["SMEM_ALLOC"] <= 232448
+    # 16 * 76 = 64 bytes mod 128: the x parities in opposite bank halves.
+    assert (16 * k["REGION"]) % 128 == 64
+
+
+def test_plane_writes_hit_only_real_cells(planes):
+    """conv0's 196 cells land on the 4 x 49 real cells of h1's planes, one
+    to one; real_row selects exactly the rows whose plane cell LEAD + m is
+    real, so no epilogue writes a junk row onto a border cell; the border
+    loop zeroes every other cell of a plane; dz1 of class c lands on h1's
+    cell of that class."""
+    k = planes[0]
+    h1_cell, real_row = kernel_fn("h1_cell"), kernel_fn("real_row")
+    border = {kernel_fn("border_cell")(i) for i in range(k["BORDER"])}
+    real = {k["LEAD"] + jy * k["PITCH"] + jx for jy in range(7)
+            for jx in range(7)}
+    assert len(border) == k["BORDER"] and not border & real
+    assert border | real == set(range(k["PLANE"]))
+    for m in range(64):
+        assert real_row(m) == (k["LEAD"] + m in real)
+    got = sorted(h1_cell(iy, ix) for iy in range(14) for ix in range(14))
+    want = sorted(p * k["REGION"] + cell for p in range(4) for cell in real)
+    assert got == want
+    for c, (py, px) in enumerate(VJP_CLASSES):
+        for m in range(64):
+            if real_row(m):
+                jy, jx = divmod(m, 8)
+                assert (c * k["REGION"] + k["LEAD"] + m
+                        == h1_cell(2 * jy + py, 2 * jx + px))
+
+
+@pytest.mark.parametrize("tap", range(25))
+def test_forward_tap_reads_its_cells(planes, tap):
+    """Forward tap t, k-step s: plane_desc(16 fwd_run(t), 16 H1_CHUNK) + 2 s
+    H1_CHUNK, as conv1_fwd issues it, reads h1 at _conv1_rows(t) on the
+    real rows (channels 16 s .. 16 s + 15), zeros on the border; junk rows
+    stay inside the h1 area."""
+    k, h1, _ = planes
+    desc = kernel_fn("plane_desc")(16 * kernel_fn("fwd_run")(tap),
+                                   16 * k["H1_CHUNK"])
+    a = torch.cat([desc_operand(h1, desc + 2 * s * k["H1_CHUNK"])
+                   for s in range(4)], 1)
+    want = _tagged(_conv1_rows(tap), 64)
+    assert torch.equal(a[_out_rows()], want)
+    assert int((want == 0).any(1).sum()) == int((_conv1_rows(tap) < 0).sum())
+
+
+VJP_PAIRS = [(c, tap) for c, (py, px) in enumerate(VJP_CLASSES)
+             for tap in range(25)
+             if (py + 1 - tap // 5) % 2 == 0 and (px + 1 - tap % 5) % 2 == 0]
+
+
+@pytest.mark.parametrize("c, tap", VJP_PAIRS)
+def test_vjp_tap_reads_its_cells(planes, c, tap):
+    """The VJP's class c at tap t, k-step s: plane_desc(16 vjp_run(py, px,
+    t), 16 DZ2_CHUNK) + 2 s DZ2_CHUNK reads dz2 at _vjp_rows(py, px, t) on
+    the real rows (channels 16 s .. 16 s + 15), zeros on the border; junk
+    rows read inside the scratch area."""
+    k, _, dz2 = planes
+    py, px = VJP_CLASSES[c]
+    desc = kernel_fn("plane_desc")(16 * kernel_fn("vjp_run")(py, px, tap),
+                                   16 * k["DZ2_CHUNK"])
+    a = torch.cat([desc_operand(dz2, desc + 2 * s * k["DZ2_CHUNK"])
+                   for s in range(8)], 1)
+    assert torch.equal(a[_out_rows()], _tagged(_vjp_rows(py, px, tap), 128))
+
+
+def test_vjp_pairs_are_the_schedule():
+    sched = vjp_schedule()
+    assert sorted(VJP_PAIRS) == sorted(
+        (c, tap) for c in range(4)
+        for tap in sched[sched[25 + c]:sched[26 + c]])
+    assert [sum(1 for cc, _ in VJP_PAIRS if cc == c) for c in range(4)] == [
+        4, 6, 6, 9]
