@@ -24,6 +24,11 @@ a train-mode :class:`FlaxBatchNorm` takes its two moments, E[x] and E[x^2],
 over the whole batch of the group's ranks, as GSPMD computes them over a
 sharded batch in the JAX package; with no group (the default) nothing
 changes.
+
+Each forward converts the float32 weights (and ``Embed``'s gathered rows)
+to the activation's dtype; each conversion that changes a dtype adds one
+to ``utils/profiling.py``'s counter ``weight_casts`` while a profiler
+session records (a float32 model counts none).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from collaborative_gan_sampling_torch.parallel.mesh import all_reduce_mean
+from collaborative_gan_sampling_torch.utils.profiling import count
 
 DCGAN_INIT_STD = 0.02  # carpedm20 DCGAN init: N(0, 0.02) kernels, zero bias
 # Std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
@@ -62,6 +68,14 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor,
     return F.conv2d(x, weight, bias, stride=stride)
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in ``dtype``; a conversion counts one ``weight_casts``."""
+    if t.dtype == dtype:
+        return t
+    count("weight_casts")
+    return t.to(dtype)
+
+
 def _normal_(t: torch.Tensor, generator: torch.Generator | None) -> None:
     with torch.no_grad():
         dev = generator.device if generator is not None else t.device
@@ -83,8 +97,8 @@ class SameConv2d(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                           self.stride)
+        return conv2d_same(x, _cast(self.weight, x.dtype),
+                           _cast(self.bias, x.dtype), self.stride)
 
 
 class FlaxConv(nn.Module):
@@ -144,8 +158,8 @@ class SameConvTranspose2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=self.stride,
+        y = F.conv_transpose2d(x, _cast(self.weight, x.dtype),
+                               _cast(self.bias, x.dtype), stride=self.stride,
                                padding=self.padding)
         return y[..., :h * self.stride, :w * self.stride]
 
@@ -163,7 +177,8 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, _cast(self.weight, x.dtype),
+                        _cast(self.bias, x.dtype))
 
 
 class Embed(nn.Module):
@@ -181,7 +196,7 @@ class Embed(nn.Module):
         _normal_(self.embedding, generator)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.embedding).to(self.dtype)
+        return _cast(F.embedding(idx, self.embedding), self.dtype)
 
 
 class LecunDense(Dense):

@@ -20,7 +20,8 @@ profiler, in brackets: the call is ``cgs.collab.call``, the burn-in M
      max(M, max(logits)); with shaping off the burn-in M stays;
   3. DRS accept mask (2 and 3: ``cgs.collab.accept``);
   4. if i % shape_every == 0: ``shaping_steps`` D updates on (real, x)
-     (``cgs.collab.shape``).
+     (``cgs.collab.shape``; each step's real batch ``cgs.collab.real_batch``
+     within it).
 
 Conditional models draw a label per sample beside z, and every result keeps
 them (``SampleResult.labels``). With ``per_class_drs`` the burn-in M is one
@@ -291,11 +292,12 @@ def _sample_collab(bundle, g, d, cfg, generator, data_fn, cond_data_fn,
         if shaping_on and i % cfg.shape_every == 0:
             with span("cgs.collab.shape"):
                 for _ in range(cfg.shaping_steps):
-                    if balanced:
-                        x_real, labels_r = cond_data_fn(generator, lab)
-                    else:
-                        x_real, labels_r = data_fn(generator,
-                                                   cfg.batch_size)
+                    with span("cgs.collab.real_batch"):
+                        if balanced:
+                            x_real, labels_r = cond_data_fn(generator, lab)
+                        else:
+                            x_real, labels_r = data_fn(generator,
+                                                       cfg.batch_size)
                     state, loss = shape_step(
                         state, *(shard_batch(group, t)
                                  for t in (x_real, x, labels_r, lab)),
