@@ -14,8 +14,15 @@ f32 sums) for a ``bfloat16`` model, ``fused_refine_conv28`` (f32) otherwise.
 Where ``ops/refine_mlp.supports_mlp_refine_kernel`` holds, they run as the
 fused MLP-D kernel, which reads D's own weight tensors. Each kernel takes
 its plain version on the CPU and any rate. Elsewhere (a conditional D
-among them) the steps run as autograd steps (``_refine_steps``, the
-counterpart of JAX's ``_refine_scan``).
+among them) the steps run as autograd steps (``_autograd_refine``, the
+counterpart of JAX's ``_refine_scan``). On the card those steps and the
+final D pass of a batch replay as one CUDA graph (``utils/graphs.py``),
+captured once per process for each key of ``_graph_key`` (D's modules and
+layout, the batch's, K, the rate and cfg's terms, the math flags), wherever
+the replay is the eager work: x-space, no trajectory, no Langevin noise (a
+replayed draw is not the generator's), a Python number for the rate, and
+nothing tracing (``utils/graphs.py::capturable``). Elsewhere, the CPU
+among it, the steps run eagerly.
 
 Latent-space refinement (``space='z'``, DGflow) drifts z instead and emits
 G(z_K):
@@ -32,8 +39,8 @@ the one-shot call of ``make_refine_fn``.
 Under a profiler (``utils/profiling.py``) each batch records its spans:
 ``cgs.refine.draw`` (z, labels, G's forward), ``cgs.refine.prepare`` (what
 a launch needs of D alone: the BN fold, the kernels' weight packing) and
-``cgs.refine.steps`` (the K steps: the kernel's launch or the autograd
-loop).
+``cgs.refine.steps`` (the K steps: the kernel's launch, the autograd
+loop or its graph's replay, which counts one ``refine_graph_replays``).
 
 Data parallelism (``group``; JAX ``refine.py:173-236`` constrains z to the
 mesh's data axis): z is drawn whole, each rank refines its slice (through
@@ -67,9 +74,15 @@ from collaborative_gan_sampling_torch.parallel.mesh import (
     shard_batch,
     world_size,
 )
-from collaborative_gan_sampling_torch.utils.profiling import span
+from collaborative_gan_sampling_torch.utils.graphs import (
+    ModuleGraph,
+    cached,
+    capturable,
+)
+from collaborative_gan_sampling_torch.utils.profiling import count, span
 
 OBJECTIVES = ("ns", "kl", "saturating")
+_GRAPH_DEVICES = ("cuda",)  # where an autograd refinement replays as a graph
 
 
 def refine_loss_per_sample(logits: torch.Tensor,
@@ -149,6 +162,62 @@ def _loss_grad(forward: Callable, objective: str) -> Callable:
     return grad_fn
 
 
+def _autograd_refine(bundle: GANBundle, cfg: RefineConfig,
+                     generator: torch.Generator | None, rate,
+                     trajectory: list | None = None) -> Callable:
+    """``steps(d, x0, labels) -> (x_K, D(x_K))``: the K autograd steps
+    under D in eval mode, then D's final pass without gradients."""
+    def steps(d, x0, labels):
+        x = _descend(_loss_grad(lambda x: bundle.discriminate(
+            d, x, labels, train=False), cfg.objective), x0, cfg,
+            generator, rate, trajectory)
+        with torch.no_grad():
+            return x, bundle.discriminate(d, x, labels, train=False)
+
+    return steps
+
+
+def _graph_applies(x0: torch.Tensor, cfg: RefineConfig, rate,
+                   return_trajectory: bool) -> bool:
+    """Whether a graph's replay is the eager autograd refinement's work."""
+    return (x0.device.type in _GRAPH_DEVICES and cfg.space == "x"
+            and not return_trajectory and cfg.noise == 0
+            and isinstance(rate, (int, float)) and not isinstance(rate, bool)
+            and capturable(x0))
+
+
+def _math_flags() -> tuple:
+    """The global settings that choose the card's kernels and their
+    precision."""
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction,
+            torch.are_deterministic_algorithms_enabled())
+
+
+def _layout(t: torch.Tensor | None) -> tuple | None:
+    return None if t is None else (t.shape, t.stride(), t.dtype, t.device)
+
+
+def _graph_key(bundle: GANBundle, d, x0: torch.Tensor,
+               labels: torch.Tensor | None, cfg: RefineConfig,
+               rate) -> tuple:
+    """All that an autograd refinement's graph depends on but the values of
+    D's tensors, x0 and the labels: D's modules by class and forward (a
+    forward replaced on a class is other work), the layouts, cfg's terms
+    and the math flags."""
+    return (bundle,
+            tuple((type(m), type(m).forward) for m in d.modules()),
+            tuple(_layout(p) + (p.requires_grad,) for p in d.parameters()),
+            tuple(_layout(b) for b in d.buffers()),
+            _layout(x0), _layout(labels), cfg.steps, float(rate),
+            cfg.objective, cfg.clip_norm, cfg.stop_score, cfg.proximal,
+            _math_flags())
+
+
 def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
                    return_trajectory: bool = False) -> Callable:
     """Build ``refine(d, x0, labels=None, generator=None, rate=None)
@@ -176,11 +245,17 @@ def make_refine_fn(bundle: GANBundle, cfg: RefineConfig,
             return x_k, {"logits": logits}
         traj = [x0.detach()] if return_trajectory else None
         with span("cgs.refine.steps"):
-            x = _descend(_loss_grad(lambda x: bundle.discriminate(
-                d, x, labels, train=False), cfg.objective), x0, cfg,
-                generator, rate, traj)
-            with torch.no_grad():
-                logits = bundle.discriminate(d, x, labels, train=False)
+            if _graph_applies(x0, cfg, rate, return_trajectory):
+                graph = cached(
+                    _graph_key(bundle, d, x0, labels, cfg, rate),
+                    lambda: ModuleGraph(_autograd_refine(
+                        bundle, cfg, None, rate), d, x0, labels))
+                d.train(False)  # as the eager forwards leave it
+                x, logits = graph(d, x0, labels)
+                count("refine_graph_replays")
+            else:
+                x, logits = _autograd_refine(bundle, cfg, generator, rate,
+                                             traj)(d, x0, labels)
         aux = {"logits": logits}
         if return_trajectory:
             aux["traj"] = torch.stack(traj)

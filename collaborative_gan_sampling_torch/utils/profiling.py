@@ -23,7 +23,9 @@ this module's store, with the counters. ``summary()`` reads the store:
 count, total and self milliseconds by span name (self: the duration less
 what the child spans cover), and the counters; ``records()`` gives the
 spans themselves and ``reset()`` empties the store. Spans nest on one
-thread, as the sampling paths run.
+thread, as the sampling paths run. Inside ``tallied()`` the counts go to
+a tally instead, profiler or not: what a CUDA graph's capture performs,
+which each replay then counts (``sampling/refine.py``).
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ class _Store:
         self.open: list[_Span] = []  # the spans entered and not left
         self.next_id = 0
         self.suspended = 0
+        self.tallies: list[dict[str, int]] = []  # innermost last
 
 
 _STORE = _Store()
@@ -155,9 +158,26 @@ def span(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` while a profiler session records."""
-    if _recording():
+    """Add ``n`` to counter ``name`` while a profiler session records;
+    inside ``tallied()``, to the innermost tally instead."""
+    if _STORE.tallies:
+        tally = _STORE.tallies[-1]
+        tally[name] = tally.get(name, 0) + n
+    elif _recording():
         _STORE.counters[name] = _STORE.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tallied():
+    """Within, every ``count`` adds to the dict this yields and not to the
+    store, whether or not a profiler session records: around a CUDA
+    graph's capture, whose counts each replay adds."""
+    tally: dict[str, int] = {}
+    _STORE.tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _STORE.tallies.pop()
 
 
 @contextlib.contextmanager
