@@ -8,8 +8,11 @@ of ``csrc/`` and the flags, so an edited source or header is rebuilt and an
 unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all at
 once.
 
-Every C entry returns the ``cudaError_t`` of its launch; the wrappers raise
-when it is not 0 (``check``).
+Every C entry returns the ``cudaError_t`` of its launch. ``launch`` is the
+one way the kernel modules call an entry: it declares the entry on its
+first call from the argument types that its module states once, passes
+tensors as their pointers and the stream last, and raises when the error
+is not 0.
 """
 
 from __future__ import annotations
@@ -31,24 +34,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# The declared C entries, by (library, entry name).
+_ENTRIES: dict[tuple[ctypes.CDLL, str], ctypes._CFuncPtr] = {}
 
 # The ``cgs`` namespace of custom ops (``ops/registry.py``); the ops stay
 # registered while this object lives.
 OPS = torch.library.Library("cgs", "DEF")
 
 
-def define_op(schema: str, cpu, cuda, fake) -> None:
+def define_op(schema: str, cpu, cuda, fake, wrapper) -> None:
     """Define the op ``cgs::<schema>`` with its CPU implementation (the
     plain version), its CUDA implementation (the kernel's launch) and its
-    fake implementation (the output shapes, for ``torch.export``). The
-    implementations are registered on the dispatcher directly: no autograd
-    formula (the outputs need none) and no Python layer between the
-    dispatcher and them, which ``torch.library.custom_op`` adds (~20 us a
-    call on a CPU host)."""
+    fake implementation (the output shapes, for ``torch.export``). Each
+    CUDA call that returns counts one on ``wrapper.launches`` (the function
+    that calls the op), a launch from a reloaded ``torch.export`` artifact
+    too. The implementations are registered on the dispatcher directly: no
+    autograd formula (the outputs need none) and no Python layer but the
+    count, where ``torch.library.custom_op`` adds ~20 us a call."""
     name = schema.split("(", 1)[0]
+
+    def counted(*args):
+        out = cuda(*args)
+        wrapper.launches += 1
+        return out
+
+    wrapper.launches = 0
     OPS.define(schema)
     OPS.impl(name, cpu, "CPU")
-    OPS.impl(name, cuda, "CUDA")
+    OPS.impl(name, counted, "CUDA")
     torch.library.register_fake(f"cgs::{name}", fake, lib=OPS)
 
 
@@ -128,6 +141,25 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
+def launch(lib: ctypes.CDLL, name: str, argtypes, *args) -> None:
+    """Calls C entry ``name`` of ``lib`` (a kernel's build from ``load``,
+    or another build of the same source from ``open_lib``) on ``args``,
+    each tensor as its data pointer, and the current stream of the first
+    argument's device (a tensor's) last. ``argtypes`` are the entry's
+    arguments before the stream, as its kernel module states them; the
+    entry is declared with them, returning a ``cudaError_t``, at its first
+    call on ``lib``. Raises with the library's error string when that
+    error is not 0."""
+    fn = _ENTRIES.get((lib, name))
+    if fn is None:
+        fn = _ENTRIES[lib, name] = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+    err = fn(*[ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+               else a for a in args], stream_of(args[0]))
+    check(lib, err, name)
+
+
 def unaliased(x0, out):
     """A plain version's (x_K, logits) as an op's outputs, which may not
     alias its inputs: x_K is x0 itself at K = 0."""
@@ -141,10 +173,6 @@ def check_device(t, what: str) -> None:
     take a fake implementation for it)."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} kernel for device {t.device}")
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:

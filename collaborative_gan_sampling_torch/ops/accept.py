@@ -32,7 +32,6 @@ input; the wrapper copies gamma_total to ``gamma_out``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -164,18 +163,19 @@ def _check(logits: torch.Tensor) -> None:
         raise ValueError(f"no DRS accept kernel for device {logits.device}")
 
 
-@functools.lru_cache(maxsize=None)
+# The C entries' arguments before the stream (csrc/drs_accept.cu).
+_P, _F = ctypes.c_void_p, ctypes.c_float
+_ELEMENTWISE = [_P] * 4 + [_F, _P, ctypes.c_int]
+_ARGTYPES = {
+    "drs_step": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_F] + [_P] * 2
+    + [ctypes.c_int],
+    "drs_accept_philox": _ELEMENTWISE,
+    "drs_accept_from_uniform": _ELEMENTWISE,
+}
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("drs_accept")
-    for entry in (lib.drs_accept_philox, lib.drs_accept_from_uniform):
-        entry.restype = ctypes.c_int
-        entry.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.drs_step.restype = ctypes.c_int
-    lib.drs_step.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_void_p]
-    return lib
+    return _build.load("drs_accept")
 
 
 def _accept(logits, logit_max, gamma, eps, gamma_percentile, gamma_out,
@@ -186,30 +186,21 @@ def _accept(logits, logit_max, gamma, eps, gamma_percentile, gamma_out,
     n = logits.shape[0]
     m = _scalar(logit_max, logits)
     out = torch.empty(n, dtype=torch.bool, device=logits.device)
-    lib = _lib()
     if n <= STEP_CAP:
         g = (_scalar(gamma, logits) if isinstance(gamma, torch.Tensor)
              else None)
-        err = lib.drs_step(
-            _build.ptr(logits), _build.ptr(m),
-            None if g is None else _build.ptr(g),
-            0.0 if g is not None else float(gamma), gamma_percentile / 100.0,
-            None if seed is None else _build.ptr(seed),
-            None if uniforms is None else _build.ptr(uniforms), float(eps),
-            _build.ptr(out),
-            None if gamma_out is None else _build.ptr(gamma_out), n,
-            _build.stream_of(logits))
-        _build.check(lib, err, "drs_step")
+        _build.launch(_lib(), "drs_step", _ARGTYPES["drs_step"], logits, m,
+                      g, 0.0 if g is not None else float(gamma),
+                      gamma_percentile / 100.0, seed, uniforms, float(eps),
+                      out, gamma_out, n)
         return out
     g = gamma_total_plain(logits, m, gamma, gamma_percentile, eps)
     if gamma_out is not None:
         gamma_out.copy_(g)
-    entry, arg = ((lib.drs_accept_philox, seed) if seed is not None
-                  else (lib.drs_accept_from_uniform, uniforms))
-    err = entry(_build.ptr(logits), _build.ptr(m), _build.ptr(g),
-                _build.ptr(arg), float(eps), _build.ptr(out), n,
-                _build.stream_of(logits))
-    _build.check(lib, err, "drs_accept")
+    entry, arg = (("drs_accept_philox", seed) if seed is not None
+                  else ("drs_accept_from_uniform", uniforms))
+    _build.launch(_lib(), entry, _ARGTYPES[entry], logits, m, g, arg,
+                  float(eps), out, n)
     return out
 
 
@@ -237,35 +228,21 @@ def _cpu_impl(plain):
 
 
 def _philox_cuda(seed, logits, m, gamma_t, gamma, eps, gamma_percentile):
-    out = _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
-                     seed=seed.contiguous())
-    drs_accept_mask_philox.launches += 1
-    return out
+    return _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
+                      seed=seed.contiguous())
 
 
 def _from_uniform_cuda(uniforms, logits, m, gamma_t, gamma, eps,
                        gamma_percentile):
     if uniforms.shape != logits.shape or uniforms.dtype != torch.float32:
         raise ValueError("uniforms must be float32 of the logits' shape")
-    out = _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
-                     uniforms=uniforms.contiguous())
-    drs_accept_mask_from_uniform.launches += 1
-    return out
+    return _launch_op(logits, m, gamma_t, gamma, eps, gamma_percentile,
+                      uniforms=uniforms.contiguous())
 
 
 def _accept_fake(draw, logits, m, gamma_t, gamma, eps, gamma_percentile):
     return (logits.new_empty(logits.shape, dtype=torch.bool),
             logits.new_empty((1,), dtype=torch.float32))
-
-
-_ACCEPT_ARGS = ("Tensor logits, Tensor m, Tensor? gamma_t, float gamma, "
-                "float eps, float gamma_percentile) -> (Tensor, Tensor)")
-_build.define_op("drs_accept_philox(Tensor seed, " + _ACCEPT_ARGS,
-                 _cpu_impl(drs_accept_mask_philox_plain), _philox_cuda,
-                 _accept_fake)
-_build.define_op("drs_accept_from_uniform(Tensor uniforms, " + _ACCEPT_ARGS,
-                 _cpu_impl(drs_accept_mask_from_uniform_plain),
-                 _from_uniform_cuda, _accept_fake)
 
 
 def _check_gamma_out(gamma_out, logits) -> None:
@@ -318,5 +295,12 @@ def drs_accept_mask_from_uniform(uniforms: torch.Tensor, logits: torch.Tensor,
                  logit_max, gamma, eps, gamma_percentile, gamma_out)
 
 
-drs_accept_mask_philox.launches = 0
-drs_accept_mask_from_uniform.launches = 0
+_ACCEPT_ARGS = ("Tensor logits, Tensor m, Tensor? gamma_t, float gamma, "
+                "float eps, float gamma_percentile) -> (Tensor, Tensor)")
+_build.define_op("drs_accept_philox(Tensor seed, " + _ACCEPT_ARGS,
+                 _cpu_impl(drs_accept_mask_philox_plain), _philox_cuda,
+                 _accept_fake, drs_accept_mask_philox)
+_build.define_op("drs_accept_from_uniform(Tensor uniforms, " + _ACCEPT_ARGS,
+                 _cpu_impl(drs_accept_mask_from_uniform_plain),
+                 _from_uniform_cuda, _accept_fake,
+                 drs_accept_mask_from_uniform)

@@ -104,50 +104,25 @@ def _f32_params(params: FoldedConvD, dev) -> list[torch.Tensor]:
     return out
 
 
+# Both entries' arguments before the stream: x0, x_out, logits, the seven
+# weight arguments, batch, steps, rate (csrc/conv_refine28*.cu).
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_float]
+
+
 def _launch(name: str, x0: torch.Tensor, weights: list[torch.Tensor],
             steps: int, rate, lib: ctypes.CDLL | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel ``name`` on x0 with its seven weight arguments (w0,
     b0, conv1's two weight arguments, b1, wd, bd), from ``lib`` if given
-    (another build of the same source), else from ``_build.load(name)``."""
+    (another build of the same source, ``_build.open_lib``), else from
+    ``_build.load(name)``."""
     x0 = x0.contiguous()
     x_out = torch.empty_like(x0)
     logits = torch.empty(x0.shape[0], device=x0.device, dtype=torch.float32)
-    lib = lib or _build.load(name)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_float, ctypes.c_void_p]
-    err = fn(_build.ptr(x0), _build.ptr(x_out), _build.ptr(logits),
-             *(_build.ptr(w) for w in weights), x0.shape[0], int(steps),
-             float(rate), _build.stream_of(x0))
-    _build.check(lib, err, name)
+    _build.launch(lib or _build.load(name), name, _ARGTYPES, x0, x_out,
+                  logits, *weights, x0.shape[0], int(steps), float(rate))
     return x_out, logits
-
-
-def _refine_fake(x0, weights, steps, rate):
-    return torch.empty_like(x0), x0.new_empty(x0.shape[0])
-
-
-def _conv_refine28_cpu(x0, weights, steps, rate):
-    with _build.autograd_inside_op():
-        return _build.unaliased(x0, refine_conv28_plain(FoldedConvD(*weights), x0,
-                                                  steps, rate))
-
-
-def _conv_refine28_cuda(x0, weights, steps, rate):
-    _check_x0(x0, "conv refine")
-    with span("cgs.refine.prepare"):
-        packed = pack_f32_refine_weights(FoldedConvD(*weights), x0.device)
-    out = _launch("conv_refine28", x0, packed, steps, rate)
-    fused_refine_conv28.launches += 1
-    return out
-
-
-_REFINE_ARGS = ("(Tensor x0, Tensor[] weights, int steps, float rate) -> "
-                "(Tensor, Tensor)")
-_build.define_op("conv_refine28" + _REFINE_ARGS, _conv_refine28_cpu,
-                 _conv_refine28_cuda, _refine_fake)
 
 
 def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
@@ -163,7 +138,16 @@ def fused_refine_conv28(params: FoldedConvD, x0: torch.Tensor, steps: int,
                                        float(rate))
 
 
-fused_refine_conv28.launches = 0
+def fused_refine_conv28_bf16(params: FoldedConvD, x0: torch.Tensor,
+                             steps: int, rate
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K refinement steps under the folded D with bf16 matmul operands and
+    float32 sums (the TPU kernel's ``bf16=True`` mode). The same contract as
+    ``fused_refine_conv28``; the weights are rounded to bf16 and packed on
+    the device by ``pack_bf16_refine_weights``."""
+    _build.check_device(x0, "bf16 conv refine")
+    return torch.ops.cgs.conv_refine28_bf16(x0, list(params), int(steps),
+                                            float(rate))
 
 
 # The VJP's parity classes: (iy % 2, ix % 2) of the h1 cells.
@@ -278,35 +262,37 @@ def pack_bf16_refine_weights(params: FoldedConvD, dev) -> list[torch.Tensor]:
             wd, bd]
 
 
-def _conv_refine28_bf16_cpu(x0, weights, steps, rate):
-    return _build.unaliased(x0, refine_conv28_plain_bf16(FoldedConvD(*weights), x0,
-                                                   steps, rate))
+def _refine_plain_f32(params, x0, steps, rate):
+    """``refine_conv28_plain``, which refines by autograd, inside an op."""
+    with _build.autograd_inside_op():
+        return refine_conv28_plain(params, x0, steps, rate)
 
 
-def _conv_refine28_bf16_cuda(x0, weights, steps, rate):
-    _check_x0(x0, "bf16 conv refine")
-    with span("cgs.refine.prepare"):
-        packed = pack_bf16_refine_weights(FoldedConvD(*weights), x0.device)
-    out = _launch("conv_refine28_bf16", x0, packed, steps, rate)
-    fused_refine_conv28_bf16.launches += 1
-    return out
+def _define_conv_refine(entry: str, what: str, plain, pack, wrapper) -> None:
+    """The op ``cgs::<entry>``: its CPU implementation is ``plain``, its
+    CUDA implementation packs the weights with ``pack`` and launches
+    ``entry``, counted on ``wrapper``."""
+
+    def cpu(x0, weights, steps, rate):
+        return _build.unaliased(x0, plain(FoldedConvD(*weights), x0, steps,
+                                          rate))
+
+    def cuda(x0, weights, steps, rate):
+        _check_x0(x0, what)
+        with span("cgs.refine.prepare"):
+            packed = pack(FoldedConvD(*weights), x0.device)
+        return _launch(entry, x0, packed, steps, rate)
+
+    def fake(x0, weights, steps, rate):
+        return torch.empty_like(x0), x0.new_empty(x0.shape[0])
+
+    _build.define_op(entry + "(Tensor x0, Tensor[] weights, int steps, "
+                     "float rate) -> (Tensor, Tensor)", cpu, cuda, fake,
+                     wrapper)
 
 
-_build.define_op("conv_refine28_bf16" + _REFINE_ARGS,
-                 _conv_refine28_bf16_cpu, _conv_refine28_bf16_cuda,
-                 _refine_fake)
-
-
-def fused_refine_conv28_bf16(params: FoldedConvD, x0: torch.Tensor,
-                             steps: int, rate
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K refinement steps under the folded D with bf16 matmul operands and
-    float32 sums (the TPU kernel's ``bf16=True`` mode). The same contract as
-    ``fused_refine_conv28``; the weights are rounded to bf16 and packed on
-    the device by ``pack_bf16_refine_weights``."""
-    _build.check_device(x0, "bf16 conv refine")
-    return torch.ops.cgs.conv_refine28_bf16(x0, list(params), int(steps),
-                                            float(rate))
-
-
-fused_refine_conv28_bf16.launches = 0
+_define_conv_refine("conv_refine28", "conv refine", _refine_plain_f32,
+                    pack_f32_refine_weights, fused_refine_conv28)
+_define_conv_refine("conv_refine28_bf16", "bf16 conv refine",
+                    refine_conv28_plain_bf16, pack_bf16_refine_weights,
+                    fused_refine_conv28_bf16)

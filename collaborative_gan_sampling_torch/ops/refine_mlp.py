@@ -220,40 +220,29 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C entry ``refine_mlp`` of a build of the kernel."""
-    lib.refine_mlp.restype = ctypes.c_int
-    lib.refine_mlp.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)] * 2
-        + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    return declare(_build.load("refine_mlp"))
+# The C entry's arguments before the stream: x0, x_out, logits, the
+# weights' and the biases' pointer arrays, batch, d, h, L, steps, rate,
+# tile, grid, smem (csrc/refine_mlp.cu).
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)] * 2
+             + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3)
 
 
 def _launch(layers: MLPLayers, x0: torch.Tensor, steps: int, rate,
             plan: LaunchPlan, lib: ctypes.CDLL | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel under ``plan``, after ``check_layers``, from
-    ``lib`` if given (another build of the source, ``declare``d), else from
-    the package's build."""
+    ``lib`` if given (another build of the source, ``_build.open_lib``),
+    else from the package's build."""
     batch, d_in = x0.shape
     hidden, relu = len(layers[0][1]), len(layers) - 1
     x_out = torch.empty_like(x0)
     logits = torch.empty(batch, device=x0.device, dtype=torch.float32)
     ptrs = ctypes.c_void_p * (relu + 1)
-    lib = lib or _lib()
-    err = lib.refine_mlp(_build.ptr(x0), _build.ptr(x_out), _build.ptr(logits),
-                         ptrs(*(w.data_ptr() for w, _ in layers)),
-                         ptrs(*(b.data_ptr() for _, b in layers)),
-                         batch, d_in, hidden, relu, int(steps), float(rate),
-                         plan.tile, plan.grid, plan.smem,
-                         _build.stream_of(x0))
-    _build.check(lib, err, "refine_mlp")
+    _build.launch(lib or _build.load("refine_mlp"), "refine_mlp", _ARGTYPES,
+                  x0, x_out, logits, ptrs(*(w.data_ptr() for w, _ in layers)),
+                  ptrs(*(b.data_ptr() for _, b in layers)), batch, d_in,
+                  hidden, relu, int(steps), float(rate), plan.tile, plan.grid,
+                  plan.smem)
     return x_out, logits
 
 
@@ -273,18 +262,11 @@ def _refine_mlp_cuda(x0, weights, biases, steps, rate):
         plan = launch_plan(x0.shape[0], x0.shape[1], hidden, relu,
                            _sms(x0.device.index if x0.device.index is not None
                                 else torch.cuda.current_device()))
-    out = _launch(layers, x0, steps, rate, plan)
-    fused_refine_mlp.launches += 1
-    return out
+    return _launch(layers, x0, steps, rate, plan)
 
 
 def _refine_mlp_fake(x0, weights, biases, steps, rate):
     return torch.empty_like(x0), x0.new_empty(x0.shape[0])
-
-
-_build.define_op("refine_mlp(Tensor x0, Tensor[] weights, Tensor[] biases, "
-                 "int steps, float rate) -> (Tensor, Tensor)",
-                 _refine_mlp_cpu, _refine_mlp_cuda, _refine_mlp_fake)
 
 
 def fused_refine_mlp(layers: MLPLayers, x0: torch.Tensor, steps: int,
@@ -300,4 +282,7 @@ def fused_refine_mlp(layers: MLPLayers, x0: torch.Tensor, steps: int,
                                     float(rate))
 
 
-fused_refine_mlp.launches = 0
+_build.define_op("refine_mlp(Tensor x0, Tensor[] weights, Tensor[] biases, "
+                 "int steps, float rate) -> (Tensor, Tensor)",
+                 _refine_mlp_cpu, _refine_mlp_cuda, _refine_mlp_fake,
+                 fused_refine_mlp)

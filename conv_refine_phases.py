@@ -167,7 +167,7 @@ def mlp_launch(batch: int, tile: int | None):
 
     def launch(lib):
         return R._launch(layers, x0, cs.MLP_STEPS, cs.MLP_RATE, plan,
-                         lib=R.declare(lib))
+                         lib=lib)
 
     return (launch, f"B={batch}, K={cs.MLP_STEPS}, tile {plan.tile}, "
             f"{plan.grid} blocks", -(-batch // plan.tile))

@@ -6,14 +6,19 @@ input written, and, but where the plain version refines by autograd inside
 the op, its run under AOT dispatch), and each wrapper is held to the plain
 function it wraps bit for bit: on the CPU the op's implementation is that
 function. The CUDA implementations launch the kernels and run on the card
-only (``chip_smoke.py``).
+only (``chip_smoke.py``); the binding they launch through
+(``ops/_build.py::launch``) and their launch count are checked here on a
+stand-in library.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
-from collaborative_gan_sampling_torch.ops import registry
+from collaborative_gan_sampling_torch.ops import _build, registry
+from collaborative_gan_sampling_torch.ops import refine_mlp as R
 from collaborative_gan_sampling_torch.ops.accept import (
     drs_accept_mask_from_uniform,
     drs_accept_mask_from_uniform_plain,
@@ -174,3 +179,99 @@ def test_cpu_calls_launch_nothing():
 def test_wrappers_refuse_other_devices(call):
     with pytest.raises(ValueError, match="kernel for device meta"):
         call(torch.zeros(784, device="meta"))
+
+
+class _Entry:
+    """A stand-in C entry: records its declarations and calls on its
+    library and returns the library's error code."""
+
+    def __init__(self, lib, name):
+        object.__setattr__(self, "lib", lib)
+        object.__setattr__(self, "name", name)
+
+    def __setattr__(self, key, value):
+        self.lib.declared.append((self.name, key))
+        object.__setattr__(self, key, value)
+
+    def __call__(self, *args):
+        self.lib.calls.append((self.name, args))
+        return self.lib.err
+
+
+class _StandInLib:
+    """Stands in for a loaded kernel library (no nvcc on this host)."""
+
+    def __init__(self):
+        self.err, self.calls, self.declared, self.entries = 0, [], [], {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, _Entry(self, name))
+
+    def cgs_error_string(self, err):
+        return f"error string of {err}".encode()
+
+
+_P = ctypes.c_void_p
+
+
+def _declares_once(lib, monkeypatch):
+    x = torch.zeros(4)
+    for _ in range(3):
+        _build.launch(lib, "k", [_P, ctypes.c_int], x, 4)
+    assert lib.declared == [("k", "restype"), ("k", "argtypes")]
+    assert lib.k.restype is ctypes.c_int
+    assert lib.k.argtypes == [_P, ctypes.c_int, _P]  # the stream last
+    assert len(lib.calls) == 3
+
+
+def _raises_with_the_error_string(lib, monkeypatch):
+    lib.err = 700
+    with pytest.raises(RuntimeError,
+                       match="^k: CUDA error 700: error string of 700$"):
+        _build.launch(lib, "k", [_P], torch.zeros(2))
+
+
+def _passes_pointers_and_the_stream_in_order(lib, monkeypatch):
+    a, b = torch.zeros(3), torch.ones(2)
+    _build.launch(lib, "k", [_P, _P, _P, ctypes.c_int, ctypes.c_float], a,
+                  None, b, 7, 0.5)
+    [(name, args)] = lib.calls
+    assert name == "k" and args[0].value == a.data_ptr() and args[1] is None
+    assert args[2].value == b.data_ptr() and args[3:] == (
+        7, 0.5, f"stream of {a.data_ptr()}")
+
+
+def _counts_one_launch_per_op_call(lib, monkeypatch):
+    """The CUDA implementation of ``cgs::refine_mlp``, dispatched by key on
+    CPU tensors, launches through the binding once and counts once."""
+    monkeypatch.setitem(_build._LIBS, "refine_mlp", lib)
+    # Other tests of this process hold the counter at 0: restored after.
+    monkeypatch.setattr(fused_refine_mlp, "launches", 0)
+    monkeypatch.setattr(R, "_sms", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    layers = _mlp_layers()
+    x0 = _t(_rng(10).standard_normal((5, 2)))
+    x_k, logits = torch.ops.cgs.refine_mlp.default.redispatch(
+        torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), x0,
+        [w for w, _ in layers], [b for _, b in layers], 3, 0.1)
+    assert fused_refine_mlp.launches == 1
+    [(name, args)] = lib.calls
+    assert name == "refine_mlp"
+    assert [a.value for a in args[:3]] == [x0.data_ptr(), x_k.data_ptr(),
+                                           logits.data_ptr()]
+    assert args[5:11] == (5, 2, 8, 2, 3, pytest.approx(0.1))
+    assert args[-1] == f"stream of {x0.data_ptr()}"
+
+
+@pytest.mark.parametrize("case", [
+    _declares_once, _raises_with_the_error_string,
+    _passes_pointers_and_the_stream_in_order,
+    _counts_one_launch_per_op_call], ids=lambda f: f.__name__.strip("_"))
+def test_binding(case, monkeypatch):
+    """``_build.launch``, the one way the kernel modules call a C entry:
+    declared once per library, tensors as pointers and the stream last, a
+    nonzero cudaError_t raised with the library's string; an op's CUDA call
+    counts one launch on its wrapper."""
+    monkeypatch.setattr(_build, "stream_of",
+                        lambda t: f"stream of {t.data_ptr()}")
+    case(_StandInLib(), monkeypatch)
