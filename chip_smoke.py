@@ -23,16 +23,20 @@ Phases, each of which raises (and exits non-zero) on failure:
              the DRS accept step with and without its percentile on both
              routes (one launch up to 4,096 logits, the
              tensor-op percentile above), its gamma_total against
-             torch.quantile's;
+             torch.quantile's; D's eval-mode epilogue (BN, leaky ReLU, the
+             SAME pad), forward and VJP, bit for bit at the imagenet64 and
+             mnist Ds' six layer shapes, B = 256 and 37, with its launches
+             and its device time a launch beside its bytes' least time;
 4. main    - ``sample(..., method="collab")`` on the ``mnist`` preset at full
              width (DCGAN 28x28x1, 64/64 filters, z = 100, K = 10, batch 256,
              the preset's bf16 compute) from a random init, with real batches
              from the port's image stream (``load_image_dataset``: 20,000
              procedural images on the card); launch counters are set to 0
              just before and read just after (the bf16 refine kernel 12
-             times, the f32 one 0); the same path with the kernels off; a
-             shorter f32 collab run after a warm-up (the f32 refine
-             kernel's launches); one ``sample(..., method="mhgan")`` run
+             times, the f32 one 0, D's epilogue 2 x 4 in the burn-in's
+             forwards); the same path with the kernels off; a shorter f32
+             collab run after a warm-up (the f32 refine kernel's launches,
+             no epilogue); one ``sample(..., method="mhgan")`` run
              (chains of 40); then the f32 kernel and autograd refine paths
              held against each other on a small input;
 5. toy2d   - ``sample(..., method="collab")`` on the ``toy2d`` preset at full
@@ -105,7 +109,9 @@ Phases, each of which raises (and exits non-zero) on failure:
              restored bit for bit; collab (40 rounds, burn-in 2,048,
              global M, class-balanced shaping: the accept kernel 40 times,
              labels (10,240,) in [0, 1,000), every shaping real batch of
-             the refined batch's labels), timed warm, and a run of 4
+             the refined batch's labels), timed warm (its tally: 48
+             graph replays, 40 rounds and 8 burn-in batches, and
+             4 x (48 x 21 + 8) = 4,064 epilogue launches), and a run of 4
              rounds timed warm and then profiled (host launches a round,
              device busy share of the profiled and of the warm wall, the
              share of D's conv0 and its VJP); collab under per-class
@@ -240,6 +246,18 @@ MLP_BATCHES = (1, 37, 256, 1001, 65536)
 # conv kernel's samples are held to BAND_SHARE likewise (bf16_refine_cases).
 RELU_BAND = 1e-5
 BAND_SHARE = 1e-3
+# D's eval-mode epilogue (csrc/d_epilogue_bf16.cu) at the layer shapes of
+# the imagenet64 and mnist presets' Ds: (preset, layer, C, H, pads); conv0
+# has no BN. Held bit for bit to its plain version at B = 256 and 37.
+EPILOGUE_SHAPES = (("imagenet64", "conv0", 96, 32, (1, 2)),
+                   ("imagenet64", "bn1", 192, 16, (1, 2)),
+                   ("imagenet64", "bn2", 384, 8, (1, 2)),
+                   ("imagenet64", "bn3", 768, 4, (0, 0)),
+                   ("mnist", "conv0", 64, 14, (1, 2)),
+                   ("mnist", "bn1", 128, 7, (0, 0)))
+# The counter of its launches, forward or VJP, that phases 4 and 5c read
+# from their runs' tallies (a CUDA graph's replay calls no launch wrapper).
+EPILOGUES = ("d_epilogue_kernels",)
 
 
 def phase(msg: str) -> None:
@@ -799,6 +817,98 @@ def mlp_refine_cases(torch, dev, d=None, batches=MLP_BATCHES):
     return worst
 
 
+def bits_apart(torch, a, b) -> int:
+    """Elements whose bits differ between two tensors of one dtype and
+    shape (a NaN is its bits, so two equal NaNs agree)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{a.dtype} {tuple(a.shape)} against {b.dtype} "
+                             f"{tuple(b.shape)}")
+    return int((a.view(torch.int16) != b.view(torch.int16)).sum())
+
+
+def d_epilogue_cases(torch, dev):
+    """D's eval-mode epilogue kernel, forward and VJP, against its plain
+    versions on the card, bit for bit, at ``EPILOGUE_SHAPES`` (B = 256 and
+    37; x with some +0 and -0, BN's statistics and parameters drawn off
+    their init), and autograd's x-gradient through the op against the
+    modules' chain (FlaxBatchNorm, lrelu, F.pad); then each kernel's launch
+    count and device time per launch beside the least time its HBM bytes
+    take (below the 50 MB L2, back-to-back launches read their inputs from
+    L2, and the share of that bound may pass 100%), and the plain
+    versions' time. Returns the elements that differ (0)."""
+    import torch.nn.functional as F
+
+    from collaborative_gan_sampling_torch.ops import d_epilogue as E
+    from collaborative_gan_sampling_torch.ops.nn import FlaxBatchNorm, lrelu
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fwd0, bwd0 = E.d_epilogue.launches, E.d_epilogue_backward.launches
+    apart, rows = 0, []
+    for preset, layer, c, h, (lo, hi) in EPILOGUE_SHAPES:
+        bn = FlaxBatchNorm(c).to(dev).eval()
+        with torch.no_grad():
+            bn.running_mean.normal_(0.0, 0.3, generator=gen)
+            bn.running_var.uniform_(0.05, 2.0, generator=gen)
+            bn.weight.normal_(1.0, 0.3, generator=gen)
+            bn.bias.normal_(0.0, 0.2, generator=gen)
+        affine = E.NO_AFFINE if layer == "conv0" else tuple(
+            t.detach() for t in bn.eval_affine())
+        for n in (BATCH, RAGGED):
+            x = (torch.randn(n, h, h, c, device=dev, generator=gen)
+                 * 2.0).to(torch.bfloat16)
+            x.view(-1)[::97] = 0.0
+            x.view(-1)[::89] = -0.0
+            x = x.permute(0, 3, 1, 2)
+            hp = h + lo + hi
+            g = (torch.randn(n, hp, hp, c, device=dev, generator=gen)
+                 ).to(torch.bfloat16).permute(0, 3, 1, 2)
+            out = E.d_epilogue(x, affine, lo, hi)
+            dx = E.d_epilogue_backward(g, out, affine[1], lo, hi)
+            torch.cuda.synchronize()
+            got = [bits_apart(torch, out, E.epilogue_plain(x, *affine, lo,
+                                                           hi)),
+                   bits_apart(torch, dx, E.epilogue_backward_plain(
+                       g, out, affine[1], lo, hi))]
+            xg = x.detach().requires_grad_(True)
+            chain = F.pad(lrelu(xg if layer == "conv0" else bn(xg)),
+                          (lo, hi, lo, hi))
+            (want,) = torch.autograd.grad(chain, xg, g)
+            xg = x.detach().requires_grad_(True)
+            (via,) = torch.autograd.grad(E.d_epilogue(xg, affine, lo, hi),
+                                         xg, g)
+            got += [bits_apart(torch, via, want)]
+            print(f"   d_epilogue {preset} {layer} B={n} C={c} {h}x{h} pads "
+                  f"({lo}, {hi}): elements apart from the plain forward "
+                  f"{got[0]}, VJP {got[1]}, autograd's x-gradient {got[2]} "
+                  f"(of {out.numel()}, {dx.numel()})")
+            apart += sum(got)
+            if n != BATCH:
+                continue
+            act = 2 * x.numel()
+            fwd = device_ms_per_launch(torch, lambda: E.d_epilogue(
+                x, affine, lo, hi), "d_epilogue_")
+            bwd = device_ms_per_launch(torch, lambda: E.d_epilogue_backward(
+                g, out, affine[1], lo, hi), "d_epilogue_")
+            plain_fwd = time_ms(lambda: E.epilogue_plain(x, *affine, lo, hi))
+            plain_bwd = time_ms(lambda: E.epilogue_backward_plain(
+                g, out, affine[1], lo, hi))
+            for what, ms, plain, nbytes in (
+                    ("forward", fwd, plain_fwd, act + 2 * out.numel()),
+                    ("VJP", bwd, plain_bwd, 3 * act)):
+                bound = nbytes / PEAK_BYTES_PER_S * 1e3
+                rows.append(f"{preset} {layer} {what} {ms:.4f} ms (bound "
+                            f"{bound:.4f} ms for {nbytes} bytes, "
+                            f"{100 * bound / ms:.1f}%; plain {plain:.4f} ms "
+                            "by events)")
+    print(f"   d_epilogue launches: {E.d_epilogue.launches - fwd0} forward, "
+          f"{E.d_epilogue_backward.launches - bwd0} VJP; device time a "
+          "launch at B = 256: " + "; ".join(rows))
+    if apart:
+        raise AssertionError(f"d_epilogue kernel: {apart} elements differ "
+                             "from the plain versions' bits")
+    return apart
+
+
 def image_data_fn(dev, data_cfg):
     """Real batches from the port's image stream: ``load_image_dataset``
     (procedural without dataset files, 20,000 uint8 images on the card)."""
@@ -829,16 +939,22 @@ def conv_counters():
             "drs_accept": drs_accept_mask_philox}
 
 
-def counted(torch, fn, counters):
+def counted(torch, fn, counters, tally=()):
     """fn() with every counter set to 0 just before; (its result, wall
-    seconds up to a synchronize, the counts just after)."""
+    seconds up to a synchronize, the counts just after). Each name of
+    ``tally`` adds what ``utils/profiling.py``'s ``count`` gave it during
+    fn(), a CUDA graph's replays included, which call no launch wrapper."""
+    from collaborative_gan_sampling_torch.utils.profiling import tallied
+
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    res = fn()
+    with tallied() as counts:
+        res = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return res, seconds, {k: c.launches for k, c in counters.items()}
+    launches = {k: c.launches for k, c in counters.items()}
+    return res, seconds, {**launches, **{k: counts.get(k, 0) for k in tally}}
 
 
 def check_collab(torch, res, rcfg, label, launches, want):
@@ -917,14 +1033,15 @@ def main_path(torch, dev):
     cfg = get_preset("mnist")
     counters = conv_counters()
     ds, data_fn = image_data_fn(dev, cfg.data)
-    rcfg, run_seed, (bundle, g, _) = bf16_collab(torch, dev, data_fn)
+    rcfg, run_seed, (bundle, g, d) = bf16_collab(torch, dev, data_fn)
 
     def run(c, seed=2, method="collab"):
         return run_seed(seed, c, method)
 
     run(rcfg, seed=1)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
-    res, seconds, launches = counted(torch, lambda: run(rcfg), counters)
+    res, seconds, launches = counted(torch, lambda: run(rcfg), counters,
+                                     tally=EPILOGUES)
     n = res.samples.shape[0]
     burn = max(1, rcfg.burn_in // rcfg.batch_size)
     phase(f"main: mnist collab, {rcfg.num_batches} rounds x {rcfg.batch_size}"
@@ -935,7 +1052,10 @@ def main_path(torch, dev):
           f"({ds.images.numel() / 1e6:.2f} MB)")
     check_collab(torch, res, rcfg, "mnist collab", launches,
                  {"conv_refine28_bf16": burn + rcfg.num_batches,
-                  "conv_refine28": 0, "drs_accept": rcfg.num_batches})
+                  "conv_refine28": 0, "drs_accept": rcfg.num_batches,
+                  # the burn-in's eval-mode D forwards, one epilogue a
+                  # conv; shaping trains and kernel #4 gives the logits
+                  "d_epilogue_kernels": burn * d.n})
     print(f"   {seconds * 1e3:.1f} ms wall, {n / seconds:.1f} refined "
           "samples/s (burn-in included)")
 
@@ -953,14 +1073,16 @@ def main_path(torch, dev):
     cfg32, run32 = f32_collab(torch, dev, data_fn)
     run32(1)  # warm-up: f32 cuDNN plans
     torch.cuda.synchronize()
-    res32, s32, launches32 = counted(torch, lambda: run32(2), counters)
+    res32, s32, launches32 = counted(torch, lambda: run32(2), counters,
+                                     tally=EPILOGUES)
     burn32 = max(1, cfg32.burn_in // cfg32.batch_size)
     phase(f"mnist collab at f32: {cfg32.num_batches} rounds x "
           f"{cfg32.batch_size} (+{burn32} burn-in rounds), K={cfg32.steps}")
     check_collab(torch, res32, cfg32, "mnist f32 collab", launches32,
                  {"conv_refine28_bf16": 0,
                   "conv_refine28": burn32 + cfg32.num_batches,
-                  "drs_accept": cfg32.num_batches})
+                  "drs_accept": cfg32.num_batches,
+                  "d_epilogue_kernels": 0})  # a float32 D
     print(f"   {s32 * 1e3:.1f} ms wall, "
           f"{res32.samples.shape[0] / s32:.1f} refined samples/s")
 
@@ -1686,9 +1808,22 @@ def imagenet64_phase(torch, dev):
     # profiled: its device ms over its own profiled wall is the busy share
     # the profile measures (the profiler slows the host), over the warm
     # wall of the same work the share without the profiler's cost.
-    _, seconds, _ = counted(torch, lambda: exp.sample(restored, "collab"),
-                            counters)
+    _, seconds, warm = counted(
+        torch, lambda: exp.sample(restored, "collab"), counters,
+        tally=EPILOGUES + ("refine_graph_replays",))
     out["samples_per_s"] = n / seconds
+    # Its graph captured by the run above, each refined batch (the rounds'
+    # and the burn-in's) replays K + 1 D forwards and K VJPs, one epilogue
+    # a conv each, and the burn-in's eager scoring forwards add one a conv.
+    convs = restored.d.n
+    burn = max(1, rcfg.burn_in // rcfg.batch_size)
+    want = {"drs_accept": rounds, "refine_graph_replays": rounds + burn,
+            "d_epilogue_kernels": ((rounds + burn) * (2 * rcfg.steps + 1)
+                                   + burn) * convs}
+    print(f"   warm run's launches {warm}")
+    if warm != want:
+        raise AssertionError(f"imagenet64 collab counted {warm}, expected "
+                             f"{want}")
     short = dataclasses.replace(rcfg, num_batches=IN64_PROFILE_ROUNDS,
                                 burn_in=rcfg.batch_size)
 
@@ -3568,6 +3703,7 @@ def main() -> None:
     err_refine = refine_cases(torch, dev)
     err_refine_bf16 = bf16_refine_cases(torch, dev)
     err_mlp = mlp_refine_cases(torch, dev)
+    d_epilogue_cases(torch, dev)
 
     launches, samples_per_s, mnist_served = main_path(torch, dev)
     small_reference(torch, dev)

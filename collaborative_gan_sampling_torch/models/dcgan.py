@@ -18,6 +18,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from collaborative_gan_sampling_torch.ops.d_epilogue import (
+    NO_AFFINE,
+    d_epilogue,
+    routes,
+)
 from collaborative_gan_sampling_torch.ops.nn import (
     Dense,
     Embed,
@@ -106,11 +111,26 @@ class DCGANDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 labels: torch.Tensor | None = None) -> torch.Tensor:
-        """x (B, H, W, C) [, labels (B,)] -> logits (B,) float32."""
-        h = lrelu(self.conv0(x.to(self.dtype).permute(0, 3, 1, 2)))
-        for i in range(1, self.n):
-            h = getattr(self, f"conv{i}")(h)
-            h = lrelu(getattr(self, f"bn{i}")(h))
+        """x (B, H, W, C) [, labels (B,)] -> logits (B,) float32.
+
+        In eval mode each conv's epilogue (BN but after conv0, leaky ReLU,
+        the next conv's SAME pad) is one ``cgs::d_epilogue_bf16`` where
+        ``ops/d_epilogue.py::routes`` takes the conv's output, and the next
+        conv reads the padded buffer it writes; elsewhere it is the
+        modules' composition."""
+        h = x.to(self.dtype).permute(0, 3, 1, 2)
+        padded = False
+        for i in range(self.n):
+            h = getattr(self, f"conv{i}")(h, padded=padded)
+            bn = getattr(self, f"bn{i}", None)
+            nxt = getattr(self, f"conv{i + 1}", None)
+            padded = not self.training and routes(h, bn)
+            if padded:
+                affine = NO_AFFINE if bn is None else bn.eval_affine()
+                pads = (0, 0) if nxt is None else nxt.pads(h.shape[-1])
+                h = d_epilogue(h, affine, *pads)
+            else:
+                h = lrelu(h if bn is None else bn(h))
         feat = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         logit = self.out(feat)[:, 0]
         if self.num_classes > 0:

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("drs_accept", "conv_refine28", "conv_refine28_bf16", "refine_mlp")
+KERNELS = ("drs_accept", "conv_refine28", "conv_refine28_bf16", "refine_mlp",
+           "d_epilogue_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +50,8 @@ def define_op(schema: str, cpu, cuda, fake, wrapper) -> None:
     CUDA call that returns counts one on ``wrapper.launches`` (the function
     that calls the op), a launch from a reloaded ``torch.export`` artifact
     too. The implementations are registered on the dispatcher directly: no
-    autograd formula (the outputs need none) and no Python layer but the
+    autograd formula (an op whose output needs one registers it beside,
+    with ``torch.library.register_autograd``) and no Python layer but the
     count, where ``torch.library.custom_op`` adds ~20 us a call."""
     name = schema.split("(", 1)[0]
 

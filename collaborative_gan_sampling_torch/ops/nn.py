@@ -96,9 +96,17 @@ class SameConv2d(nn.Module):
         _normal_(self.weight, generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, _cast(self.weight, x.dtype),
-                           _cast(self.bias, x.dtype), self.stride)
+    def pads(self, size: int) -> tuple[int, int]:
+        """(low, high) SAME padding of an input side of ``size``."""
+        return same_pads(size, self.weight.shape[-1], self.stride)
+
+    def forward(self, x: torch.Tensor, padded: bool = False) -> torch.Tensor:
+        """The conv of x; ``padded``: x already carries the SAME pads, its
+        border zeros included (``ops/d_epilogue.py`` writes them)."""
+        w, b = _cast(self.weight, x.dtype), _cast(self.bias, x.dtype)
+        if padded:
+            return F.conv2d(x, w, b, stride=self.stride)
+        return conv2d_same(x, w, b, self.stride)
 
 
 class FlaxConv(nn.Module):
@@ -257,8 +265,15 @@ class FlaxBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def eval_affine(self) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+        """(mean, mul, bias) of the eval-mode normalisation
+        ``(x - mean) * mul + bias``, float32 (C,): the running mean,
+        rsqrt(running_var + eps) * weight and the bias."""
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return self.running_mean, mul, self.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.float()
         if self.training:
             # Flax's fast variance: E[x^2] - E[x]^2, clipped at 0.
@@ -272,8 +287,16 @@ class FlaxBatchNorm(nn.Module):
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
                 self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+            mul = torch.rsqrt(var + self.eps) * self.weight
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+            mean, mul, _ = self.eval_affine()
+        return batch_norm_affine(xf, mean, mul, self.bias).to(x.dtype)
+
+
+def batch_norm_affine(xf: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """``(xf - mean) * mul + bias`` over the channel axis (1) of float32
+    ``xf``, each step rounded to float32: ``FlaxBatchNorm``'s normalisation
+    and the plain version of ``ops/d_epilogue.py``'s kernel."""
+    shape = (1, -1) + (1,) * (xf.ndim - 2)
+    return (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)

@@ -7,7 +7,8 @@ Counterpart of ``collaborative_gan_sampling_tpu/sampling/refine.py``:
 with optional per-sample gradient clipping, Langevin noise, a per-sample
 stop score and a proximal pull toward x_0. D runs in eval mode, so it is
 per-sample decoupled and the gradient of the summed loss is each sample's
-own. Where ``ops/conv_refine.supports_conv_refine_kernel`` holds, the K steps
+own, and over its parameters detached (``_frozen_d``), as the steps
+differentiate x alone. Where ``ops/conv_refine.supports_conv_refine_kernel`` holds, the K steps
 run as a fused conv-D kernel in the model's compute dtype, as the JAX package
 refines the same preset: ``fused_refine_conv28_bf16`` (bf16 matmul operands,
 f32 sums) for a ``bfloat16`` model, ``fused_refine_conv28`` (f32) otherwise.
@@ -162,17 +163,28 @@ def _loss_grad(forward: Callable, objective: str) -> Callable:
     return grad_fn
 
 
+def _frozen_d(bundle: GANBundle, d, labels) -> Callable:
+    """``x -> D(x)`` in eval mode over D's parameters detached. A
+    refinement differentiates its iterate alone, so D records no parameter
+    gradient, and its forward takes the same ops whether it runs eagerly or
+    in a graph's capture (``ops/d_epilogue.py::routes``)."""
+    params = {name: p.detach() for name, p in d.named_parameters()}
+    args = bundle._labels(labels)
+    d.train(False)
+    return lambda x: torch.func.functional_call(d, params, (x, *args))
+
+
 def _autograd_refine(bundle: GANBundle, cfg: RefineConfig,
                      generator: torch.Generator | None, rate,
                      trajectory: list | None = None) -> Callable:
     """``steps(d, x0, labels) -> (x_K, D(x_K))``: the K autograd steps
     under D in eval mode, then D's final pass without gradients."""
     def steps(d, x0, labels):
-        x = _descend(_loss_grad(lambda x: bundle.discriminate(
-            d, x, labels, train=False), cfg.objective), x0, cfg,
-            generator, rate, trajectory)
+        forward = _frozen_d(bundle, d, labels)
+        x = _descend(_loss_grad(forward, cfg.objective), x0, cfg,
+                     generator, rate, trajectory)
         with torch.no_grad():
-            return x, bundle.discriminate(d, x, labels, train=False)
+            return x, forward(x)
 
     return steps
 
@@ -297,17 +309,18 @@ def make_refine_z_fn(bundle: GANBundle, cfg: RefineConfig,
     def refine_local(g, d, z, labels, generator, rate):
         if cfg.space == "z":
             rate = cfg.rate if rate is None else rate
+            discriminate = _frozen_d(bundle, d, labels)
 
             def forward(z):
-                x = bundle.generate(g, z, labels, train=False)
-                return bundle.discriminate(d, x, labels, train=False)
+                return discriminate(bundle.generate(g, z, labels,
+                                                    train=False))
 
             with span("cgs.refine.steps"):
                 z = _descend(_loss_grad(forward, cfg.objective), z, cfg,
                              generator, rate)
                 with torch.no_grad():
                     x = bundle.generate(g, z, labels, train=False)
-                    return x, bundle.discriminate(d, x, labels, train=False)
+                    return x, discriminate(x)
         with span("cgs.refine.draw"), torch.no_grad():
             x0 = bundle.generate(g, z, labels, train=False)
         x, aux = refine(d, x0, labels, generator=generator, rate=rate)

@@ -34,6 +34,10 @@ from collaborative_gan_sampling_torch.ops.conv_refine_ref import (
     refine_conv28_plain,
     refine_conv28_plain_bf16,
 )
+from collaborative_gan_sampling_torch.ops.d_epilogue import (
+    d_epilogue,
+    d_epilogue_backward,
+)
 from collaborative_gan_sampling_torch.ops.refine_mlp import (
     fused_refine_mlp,
     refine_mlp_plain,
@@ -80,6 +84,17 @@ def _accept_inputs(n=37, seed=2):
         _t(r.uniform(size=n))
 
 
+def _epilogue_inputs(seed=11, c=16, h=5):
+    """conv_i's output (B, C, h, h) bf16 channels-last, BN's (mean, mul,
+    bias), and a gradient of the output padded by (1, 2)."""
+    r = _rng(seed)
+    x = _t(r.standard_normal((3, h, h, c))).to(torch.bfloat16)
+    g = _t(r.standard_normal((3, h + 3, h + 3, c))).to(torch.bfloat16)
+    affine = (_t(r.standard_normal(c) * 0.3), _t(r.uniform(0.5, 1.5, c)),
+              _t(r.standard_normal(c) * 0.2))
+    return x.permute(0, 3, 1, 2), affine, g.permute(0, 3, 1, 2)
+
+
 def _cases():
     """(op, args, checks) per op at small shapes."""
     logits, m, u = _accept_inputs()
@@ -87,6 +102,8 @@ def _cases():
     x2 = _t(_rng(4).standard_normal((5, 2)))
     layers = _mlp_layers()
     seed = torch.tensor([12345], dtype=torch.int64)
+    xe, affine, ge = _epilogue_inputs()
+    out = torch.ops.cgs.d_epilogue_bf16(xe, *affine, 1, 2)
     return {
         "drs_accept_philox": (
             (seed, logits, m, None, 0.25, 1e-6, 80.0), ALL_CHECKS),
@@ -97,6 +114,8 @@ def _cases():
         "conv_refine28_bf16": ((x28, list(_folded()), 2, 0.02), ALL_CHECKS),
         "refine_mlp": ((x2, [w for w, _ in layers], [b for _, b in layers],
                         3, 0.1), ALL_CHECKS),
+        "d_epilogue_bf16": ((xe, *affine, 1, 2), ALL_CHECKS),
+        "d_epilogue_bf16_backward": ((ge, out, affine[1], 1, 2), ALL_CHECKS),
     }
 
 
@@ -164,7 +183,7 @@ def test_cpu_calls_launch_nothing():
     """The launch counters count the CUDA implementations only."""
     counters = (drs_accept_mask_philox, drs_accept_mask_from_uniform,
                 fused_refine_conv28, fused_refine_conv28_bf16,
-                fused_refine_mlp)
+                fused_refine_mlp, d_epilogue, d_epilogue_backward)
     before = [c.launches for c in counters]
     for name, (args, _) in _cases().items():
         getattr(torch.ops.cgs, name)(*args)
